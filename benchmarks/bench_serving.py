@@ -5,7 +5,7 @@ request arrivals — the serving regime the reference could never enter
 (bs=1, llama.h:31) — and reports request throughput, output tok/s, and
 TTFT / end-to-end latency percentiles.
 
-    python benchmarks/bench_serving.py                     # TPU, llama2-7b int8
+    python benchmarks/bench_serving.py                     # GPU, llama2-7b int8
     python benchmarks/bench_serving.py --model debug \
         --platform cpu --requests 24 --rate 50             # CPU smoke
 
@@ -56,14 +56,11 @@ def main(argv=None) -> int:
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-        if args.platform != "tpu":
-            from llm_inference_engine_tpu.utils import set_pallas_interpret
-            set_pallas_interpret(True)
 
-    from llm_inference_engine_tpu.config import (EngineConfig, SamplingParams,
+    from llm_inference_engine.config import (EngineConfig, SamplingParams,
                                                  get_config)
-    from llm_inference_engine_tpu.models.registry import create_dummy_engine
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.models.registry import create_dummy_engine
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
 
     cfg = get_config(args.model)
@@ -77,7 +74,7 @@ def main(argv=None) -> int:
     if args.draft_model:
         if args.kv_layout == "paged":
             ap.error("--draft-model requires --kv-layout slot")
-        from llm_inference_engine_tpu.runtime.speculative_scheduler import (
+        from llm_inference_engine.runtime.speculative_scheduler import (
             SpeculativeScheduler)
         # a different seed: identical dummy weights would pin acceptance
         # at 100% and measure a speedup no deployment could see

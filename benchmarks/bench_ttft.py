@@ -2,7 +2,7 @@
 
 BASELINE.md tracks p50 TTFT per config. Measures the full first-token
 path — tokenized prompt in, sampled first token id out — for Llama2-7B
-INT8 on the attached chip at several prompt lengths. Prints one JSON line
+INT8 on the attached GPU at several prompt lengths. Prints one JSON line
 per length:
 
     python benchmarks/bench_ttft.py [--batch 1] [--model llama2-7b]
@@ -33,10 +33,10 @@ def main():
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args()
 
-    from llm_inference_engine_tpu.config import EngineConfig, get_config
-    from llm_inference_engine_tpu.models.weights import (
+    from llm_inference_engine.config import EngineConfig, get_config
+    from llm_inference_engine.models.weights import (
         init_dummy_quantized_params, init_dummy_params)
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.runtime.engine import InferenceEngine
 
     cfg = get_config(args.model)
     eng = EngineConfig(max_batch_size=args.batch,

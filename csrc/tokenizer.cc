@@ -5,7 +5,7 @@
 // feeding a priority-queue merge loop at tokenizer.h:168-271, with byte
 // fallback at tokenizer.h:282-289). The algorithm is specified by — and
 // tested for exact parity against — the pure-Python fallback in
-// llm_inference_engine_tpu/tokenizer/bpe.py.
+// llm_inference_engine/tokenizer/bpe.py.
 //
 // Exposed as a C ABI consumed via ctypes (tokenizer/native.py). Encoding is
 // the per-request host hot path of an inference server; everything here is

@@ -4,7 +4,7 @@
 // C++ equivalent of the reference's weight-loading tier (reference:
 // src/utils/weight_utils.cu:132-229 — a serial fread per tensor followed by
 // an H2D copy and, for dtype mismatches, a `typeConversion` CUDA cast
-// kernel at weight_utils.cu:46-60). On TPU the H2D transfer belongs to JAX
+// kernel at weight_utils.cu:46-60). Here the H2D transfer belongs to JAX
 // (jnp.asarray / device_put); what remains host-side — and dominates
 // checkpoint load time for a 7B model — is reading tens of GB and
 // reshaping fp16/bf16 [out, in] matrices into the engine's [in, out]
@@ -12,7 +12,7 @@
 // done here with pread into the caller's buffer and a blocked, threaded
 // cast/transpose.
 //
-// Consumed via ctypes from llm_inference_engine_tpu/runtime/native.py.
+// Consumed via ctypes from llm_inference_engine/runtime/native.py.
 
 #include <atomic>
 #include <cstdint>

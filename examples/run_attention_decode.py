@@ -16,8 +16,8 @@ from _common import report
 import jax
 import jax.numpy as jnp
 
-from llm_inference_engine_tpu.ops import kv_cache as kvc
-from llm_inference_engine_tpu.ops.attention import attention, attention_xla
+from llm_inference_engine.ops import kv_cache as kvc
+from llm_inference_engine.ops.attention import attention, attention_ref
 
 B, H, K, D, S = 4, 8, 2, 64, 128
 
@@ -35,8 +35,8 @@ kv_len = q_start + 1
 cache = kvc.new_kv_cache(1, B, K, S, D, dtype=jnp.float32)
 k_layer, v_layer, _, _ = kvc.update_layer_cache(
     cache.k[0], cache.v[0], k_new, v_new, q_start)
-out = attention(q, k_layer, v_layer, q_start, kv_len, kernels="pallas")
-ref = attention_xla(q, k_layer, v_layer, q_start, kv_len)
+out = attention(q, k_layer, v_layer, q_start, kv_len)
+ref = attention_ref(q, k_layer, v_layer, q_start, kv_len)
 err = float(jnp.max(jnp.abs(out - ref)))
 report("decode attention vs dense golden", err < 2e-5, f"max err {err:.2e}")
 
@@ -45,7 +45,7 @@ qcache = kvc.new_kv_cache(1, B, K, S, D, dtype=jnp.float32, quantized=True)
 k8, v8, ks, vs = kvc.update_layer_cache(
     qcache.k[0], qcache.v[0], k_new, v_new, q_start,
     qcache.k_scale[0], qcache.v_scale[0])
-out8 = attention(q, k8, v8, q_start, kv_len, kernels="pallas",
+out8 = attention(q, k8, v8, q_start, kv_len,
                  k_scale=ks, v_scale=vs)
 err8 = float(jnp.max(jnp.abs(out8 - ref)))
 report("decode attention with INT8 KV cache", err8 < 0.05,

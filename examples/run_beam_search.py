@@ -6,9 +6,9 @@ sys.path.insert(0, os.path.dirname(__file__))
 import _common  # noqa: F401
 from _common import report
 
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.beam_search import beam_search
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.beam_search import beam_search
 
 cfg = get_config("debug")
 eng = EngineConfig(max_batch_size=4, max_seq_len=64)

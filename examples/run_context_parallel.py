@@ -3,9 +3,9 @@
 Beyond-one-chip sequence capacity (SURVEY.md §5 long-context row — the
 reference was single-GPU with max_seq_len=64): EngineConfig(cp=N) splits
 the KV cache's token capacity over the mesh's ``seq`` axis, runs prefill
-as ring attention (ppermute over ICI) and decode as split-KV
+as ring attention (ppermute between devices) and decode as split-KV
 flash-decoding (pmax/psum combine), with the per-rank append-log cache
-layout (parallel/cp_cache.py). Run with no real TPUs:
+layout (parallel/cp_cache.py). Run on virtual CPU devices:
 
   python examples/run_context_parallel.py
 
@@ -28,10 +28,10 @@ jax.config.update("jax_platforms", "cpu")
 import _common  # noqa: F401
 from _common import report
 
-from llm_inference_engine_tpu.config import (EngineConfig, SamplingParams,
+from llm_inference_engine.config import (EngineConfig, SamplingParams,
                                              get_config)
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
 
 cfg = get_config("debug")
 params = init_dummy_params(cfg, seed=0)
@@ -39,13 +39,13 @@ prompts = [[1, 17, 93, 5], [7, 9, 23], [2, 4, 6, 8, 10], [11]]
 sp = SamplingParams(greedy=True, max_new_tokens=8)
 
 base = InferenceEngine(
-    cfg, EngineConfig(max_batch_size=4, max_seq_len=64, max_prefill_len=16,
-                      kernels="xla"), params)
+    cfg, EngineConfig(max_batch_size=4, max_seq_len=64, max_prefill_len=16),
+    params)
 want = base.generate(prompts, sp, eos_token_id=None).token_ids
 
 cpe = InferenceEngine(
     cfg, EngineConfig(max_batch_size=4, max_seq_len=64, max_prefill_len=16,
-                      kernels="xla", cp=2, dp=2), params)
+                      cp=2, dp=2), params)
 got = cpe.generate(prompts, sp, eos_token_id=None).token_ids
 
 print("single-device:", want)

@@ -12,13 +12,13 @@ from _common import report
 import jax.numpy as jnp
 import numpy as np
 
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.ops import kv_cache as kvc
 
 cfg = get_config("debug")
-eng = EngineConfig(max_batch_size=1, max_seq_len=32, kernels="auto")
+eng = EngineConfig(max_batch_size=1, max_seq_len=32)
 params = init_dummy_params(cfg, seed=0, scale=0.3)
 
 toks = np.array([[1, 7, 42, 99, 5, 13, 27, 3]], np.int32)

@@ -8,9 +8,9 @@ sys.path.insert(0, os.path.dirname(__file__))
 import _common  # noqa: F401
 from _common import report
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
 
 cfg = get_config("debug")
 engine = InferenceEngine(cfg, EngineConfig(max_batch_size=3, max_seq_len=64),

@@ -9,8 +9,8 @@ from _common import report
 import jax
 import jax.numpy as jnp
 
-from llm_inference_engine_tpu.ops.activations import silu_and_mul
-from llm_inference_engine_tpu.ops.linear import linear
+from llm_inference_engine.ops.activations import silu_and_mul
+from llm_inference_engine.ops.linear import linear
 
 T, Hd, I = 24, 128, 256
 key = jax.random.PRNGKey(2)

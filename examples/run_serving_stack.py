@@ -8,11 +8,11 @@ sys.path.insert(0, os.path.dirname(__file__))
 import _common  # noqa: F401
 from _common import report
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.scheduler import ContinuousBatchingScheduler
-from llm_inference_engine_tpu.runtime.speculative_scheduler import (
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.scheduler import ContinuousBatchingScheduler
+from llm_inference_engine.runtime.speculative_scheduler import (
     SpeculativeScheduler)
 
 CFG = get_config("debug")
@@ -20,7 +20,7 @@ CFG = get_config("debug")
 
 def engine(layout="slot", seed=0, **kw):
     return InferenceEngine(
-        CFG, EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla",
+        CFG, EngineConfig(max_batch_size=2, max_seq_len=64,
                           max_prefill_len=8, kv_layout=layout, page_size=16,
                           **kw),
         init_dummy_params(CFG, seed=seed))

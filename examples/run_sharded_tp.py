@@ -3,7 +3,7 @@
 The capability tier the reference lacked entirely (SURVEY.md §2f: no
 NCCL/MPI, single device, bs=1): Megatron-style TP — qkv/gate_up
 column-sharded, o/down row-sharded with one psum each — over a
-jax.sharding Mesh. Run with no real TPUs:
+jax.sharding Mesh. Run on virtual CPU devices:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/run_sharded_tp.py
@@ -27,20 +27,19 @@ from _common import report
 import jax
 import jax.numpy as jnp
 
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
-from llm_inference_engine_tpu.parallel import make_mesh, sharding
-from llm_inference_engine_tpu.utils import cpu_devices, set_pallas_interpret
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.ops import kv_cache as kvc
+from llm_inference_engine.parallel import make_mesh, sharding
+from llm_inference_engine.utils import cpu_devices
 
-set_pallas_interpret(True)
 devices = cpu_devices(8)
 
 cfg = get_config("debug").replace(num_kv_heads=4, num_heads=8)
 dp, tp = 2, 4
 B = 4
-eng = EngineConfig(max_batch_size=B, max_seq_len=32, kernels="xla",
+eng = EngineConfig(max_batch_size=B, max_seq_len=32,
                    dp=dp, tp=tp)
 mesh = make_mesh(dp=dp, tp=tp, devices=devices)
 

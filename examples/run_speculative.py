@@ -8,13 +8,13 @@ sys.path.insert(0, os.path.dirname(__file__))
 import _common  # noqa: F401
 from _common import report
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.speculative import SpeculativeDecoder
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.speculative import SpeculativeDecoder
 
 cfg = get_config("debug")
-eng = EngineConfig(max_batch_size=1, max_seq_len=96, kernels="xla")
+eng = EngineConfig(max_batch_size=1, max_seq_len=96)
 target = InferenceEngine(cfg, eng, init_dummy_params(cfg, seed=0, scale=0.3))
 draft = InferenceEngine(cfg, eng, init_dummy_params(cfg, seed=0, scale=0.3))
 
@@ -30,7 +30,7 @@ print("  greedy:", want[0])
 print("  spec:  ", res.token_ids[0],
       f"(acceptance {res.acceptance_rate:.0%})")
 # identical draft == target: high acceptance; exactness is bit-for-bit in
-# f32 and tie-flip-limited under bf16 MXU noise
+# f32 and tie-flip-limited under bf16 rounding noise
 report("speculative decoding", res.acceptance_rate > 0.5,
        f"acceptance {res.acceptance_rate:.0%}, "
        f"{res.num_accepted}/{res.num_drafted} drafts accepted")

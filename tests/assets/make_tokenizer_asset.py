@@ -156,7 +156,7 @@ def main():
     model_path = HERE / "tiny_spm_bpe.model"
     model_path.write_bytes(blob)
 
-    from llm_inference_engine_tpu.tokenizer.bpe import (
+    from llm_inference_engine.tokenizer.bpe import (
         _load_sentencepiece_model)
     tok = _load_sentencepiece_model(str(model_path))
     hf = build_hf(pieces)

@@ -13,26 +13,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
-from llm_inference_engine_tpu.runtime.beam_search import beam_search
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.ops import kv_cache as kvc
+from llm_inference_engine.runtime.beam_search import beam_search
+from llm_inference_engine.runtime.engine import InferenceEngine
 
 
 @pytest.fixture(scope="module")
 def setup():
     cfg = get_config("debug")
     params = init_dummy_params(cfg, seed=3, scale=0.35)
-    eng = EngineConfig(max_batch_size=4, max_seq_len=64, kernels="xla")
+    eng = EngineConfig(max_batch_size=4, max_seq_len=64)
     return cfg, eng, params
 
 
 def _seq_logprob(cfg, params, prompt, generated):
     """Teacher-forced log P(generated | prompt), single full forward."""
     full = list(prompt) + list(generated)
-    eng = EngineConfig(max_batch_size=1, max_seq_len=len(full), kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=len(full))
     cache = kvc.new_kv_cache(cfg.num_layers, 1, cfg.num_kv_heads, len(full),
                              cfg.head_dim, dtype=cfg.dtype)
     ids = jnp.asarray([full], jnp.int32)

@@ -13,8 +13,8 @@ import pytest
 
 tokenizers = pytest.importorskip("tokenizers")
 
-from llm_inference_engine_tpu.tokenizer import load_tokenizer
-from llm_inference_engine_tpu.tokenizer.bytelevel import (
+from llm_inference_engine.tokenizer import load_tokenizer
+from llm_inference_engine.tokenizer.bytelevel import (
     ByteLevelBPETokenizer, is_bytelevel_tokenizer_json)
 
 CORPUS = [

@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.ops.quant import (
+from llm_inference_engine.ops.quant import (
     QuantizedTensor, dequantize_tensor, quantize_tensor, search_clip)
 
 
@@ -82,8 +82,8 @@ def test_calibrated_format_identical(rng):
 
 
 def test_quantize_params_calibrated_runs_and_matches_format(rng):
-    from llm_inference_engine_tpu.config import get_config
-    from llm_inference_engine_tpu.models.weights import (
+    from llm_inference_engine.config import get_config
+    from llm_inference_engine.models.weights import (
         calibrate_act_sq, init_dummy_params, quantize_params,
         quantize_params_calibrated)
     cfg = get_config("debug")

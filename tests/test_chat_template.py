@@ -9,12 +9,12 @@ and ChatSession wiring (template text in, template stops honored).
 
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.chat_template import (
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.chat_template import (
     get_chat_template, resolve_stop_ids, template_for_model)
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.session import ChatSession
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.session import ChatSession
 
 
 def test_llama2_render():
@@ -100,7 +100,7 @@ class _StubTokenizer:
 def test_chat_session_uses_template_and_stops():
     cfg = get_config("debug")
     engine = InferenceEngine(
-        cfg, EngineConfig(max_batch_size=1, max_seq_len=64, kernels="xla"),
+        cfg, EngineConfig(max_batch_size=1, max_seq_len=64),
         init_dummy_params(cfg, seed=0))
     tok = _StubTokenizer()
     s = ChatSession(engine, tok, system_prompt="sys", template="chatml")

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.utils.checks import assert_finite, nan_guard
+from llm_inference_engine.utils.checks import assert_finite, nan_guard
 
 
 def test_nan_guard_passes_clean_fn():

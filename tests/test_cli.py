@@ -1,6 +1,6 @@
 """End-to-end CLI REPL test (subprocess) — the user_entry.cpp:9-43 surface.
 
-Drives the real `python -m llm_inference_engine_tpu.cli` process on the CPU
+Drives the real `python -m llm_inference_engine.cli` process on the CPU
 backend with dummy weights: REPL protocol (prompt line, 's' quits), the
 streaming callback print protocol (':' first chunk, newline at -1),
 multi-round history, and /reset.
@@ -20,7 +20,7 @@ def run_cli(stdin: str, *extra_args: str, timeout: int = 240) -> str:
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run(
-        [sys.executable, "-m", "llm_inference_engine_tpu.cli",
+        [sys.executable, "-m", "llm_inference_engine.cli",
          "--model", "debug", "--dummy-weights", "--greedy",
          "--max-new-tokens", "4", "--max-seq-len", "64",
          "--platform", "cpu", *extra_args],
@@ -53,7 +53,7 @@ def test_cli_requires_checkpoint_or_dummy():
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run(
-        [sys.executable, "-m", "llm_inference_engine_tpu.cli",
+        [sys.executable, "-m", "llm_inference_engine.cli",
          "--model", "debug", "--platform", "cpu"],
         input="", capture_output=True, text=True, timeout=120, env=env,
         cwd=REPO)

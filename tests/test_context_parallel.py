@@ -1,7 +1,7 @@
 """Context-parallel attention parity: ring prefill + split-KV decode on a
 virtual 8-device CPU mesh vs the single-device golden attention.
 
-SURVEY.md §5 long-context row: ring/CP over ICI is the designed extension
+SURVEY.md §5 long-context row: ring/CP over devices is the designed extension
 point beyond one chip's HBM. These tests pin that the sequence-sharded
 paths (parallel/context_parallel.py) produce exactly the single-device
 flash/golden numbers for causal, ragged, GQA and sliding-window cases.
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.ops.attention import attention_xla
-from llm_inference_engine_tpu.parallel import context_parallel as cp
+from llm_inference_engine.ops.attention import attention_ref
+from llm_inference_engine.parallel import context_parallel as cp
 
 
 def _mesh(n):
@@ -41,7 +41,7 @@ def test_ring_prefill_parity(gqa, ragged):
               else jnp.full((B,), T, jnp.int32))
 
     got = cp.ring_prefill_sharded(mesh, q, k, v, q_start, kv_len)
-    want = attention_xla(q, k, v, q_start, kv_len, causal=True)
+    want = attention_ref(q, k, v, q_start, kv_len, causal=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -59,7 +59,7 @@ def test_ring_prefill_with_history_offset():
     kv_len = jnp.full((B,), S, jnp.int32)
 
     got = cp.ring_prefill_sharded(mesh, q, k, v, q_start, kv_len)
-    want = attention_xla(q, k, v, q_start, kv_len, causal=True)
+    want = attention_ref(q, k, v, q_start, kv_len, causal=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -75,7 +75,7 @@ def test_ring_prefill_sliding_window():
     kv_len = jnp.full((B,), T, jnp.int32)
 
     got = cp.ring_prefill_sharded(mesh, q, k, v, q_start, kv_len, window=W)
-    want = attention_xla(q, k, v, q_start, kv_len, causal=True, window=W)
+    want = attention_ref(q, k, v, q_start, kv_len, causal=True, window=W)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -92,7 +92,7 @@ def test_split_kv_decode_parity(gqa):
     kv_len = jnp.array([128, 77, 1], jnp.int32)   # ragged incl. length-1
 
     got = cp.split_decode_sharded(mesh, q, k, v, kv_len)
-    want = attention_xla(q, k, v, kv_len - 1, kv_len, causal=True)
+    want = attention_ref(q, k, v, kv_len - 1, kv_len, causal=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -107,7 +107,7 @@ def test_split_kv_decode_window():
     kv_len = jnp.array([128, 100], jnp.int32)
 
     got = cp.split_decode_sharded(mesh, q, k, v, kv_len, window=W)
-    want = attention_xla(q, k, v, kv_len - 1, kv_len, causal=True, window=W)
+    want = attention_ref(q, k, v, kv_len - 1, kv_len, causal=True, window=W)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -186,7 +186,7 @@ def test_ring_prefill_parity_blockwise_inner():
         got = cp.ring_prefill_sharded(mesh, q, k, v, q_start, kv_len)
     finally:
         cp.chunk_attention_stats = orig
-    want = attention_xla(q, k, v, q_start, kv_len, causal=True)
+    want = attention_ref(q, k, v, q_start, kv_len, causal=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -198,7 +198,7 @@ def test_ring_prefill_parity_blockwise_inner():
 def test_chunk_stats_separate_scales_match_dequant(blockwise):
     """int8 kv + [B, Tk, K] scales == stats on the dequantized bf16 rows
     (identical compute order, so the match is tight)."""
-    from llm_inference_engine_tpu.ops.kv_cache import _quantize_kv
+    from llm_inference_engine.ops.kv_cache import _quantize_kv
     key = jax.random.PRNGKey(0)
     B, Tq, Tk, K, G, D = 2, 4, 24, 2, 2, 16
     q = _rand(key, (B, Tq, K * G, D))
@@ -225,7 +225,7 @@ def test_chunk_stats_separate_scales_match_dequant(blockwise):
 def test_chunk_stats_embedded_match_dequant(blockwise):
     """Embedded-scale int8 rows (ops.kv_cache.quantize_kv_embedded layout)
     == stats on explicitly dequantized rows."""
-    from llm_inference_engine_tpu.ops.kv_cache import (
+    from llm_inference_engine.ops.kv_cache import (
         EMBED_PAD, decode_embedded_scales, quantize_kv_embedded)
     key = jax.random.PRNGKey(3)
     B, Tq, Tk, K, G, D = 2, 3, 16, 8, 1, 128
@@ -255,7 +255,7 @@ def test_chunk_stats_embedded_match_dequant(blockwise):
 def test_ring_attention_int8_scales_rotate():
     """Ring over a 2-rank mesh with a separate-scale int8 log: scales must
     rotate with their kv chunks (a mismatch would show immediately)."""
-    from llm_inference_engine_tpu.ops.kv_cache import _quantize_kv
+    from llm_inference_engine.ops.kv_cache import _quantize_kv
     mesh = _mesh(2)
     from jax.sharding import PartitionSpec as P
     try:
@@ -292,5 +292,5 @@ def test_ring_attention_int8_scales_rotate():
     kd = qk.astype(jnp.float32) * ks[..., None]
     vd = qv.astype(jnp.float32) * vs[..., None]
     q_start = jnp.zeros((B,), jnp.int32)
-    want = np.asarray(attention_xla(q, kd, vd, q_start, kv_len, causal=True))
+    want = np.asarray(attention_ref(q, kd, vd, q_start, kv_len, causal=True))
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)

@@ -16,17 +16,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.config import (EngineConfig, SamplingParams,
+from llm_inference_engine.config import (EngineConfig, SamplingParams,
                                              get_config)
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
 
 CFG = get_config("debug")           # 4 heads, 2 kv heads, vocab 256, fp32
 
 
 def make_engine(cp=1, tp=1, dp=1, seed=0, **kw):
-    eng = EngineConfig(max_batch_size=4, max_seq_len=64, max_prefill_len=16,
-                       kernels="xla", cp=cp, tp=tp, dp=dp, **kw)
+    eng = EngineConfig(max_batch_size=4, max_seq_len=64, max_prefill_len=16, cp=cp, tp=tp, dp=dp, **kw)
     params = init_dummy_params(CFG, seed=seed)
     return InferenceEngine(CFG, eng, params, rng_seed=0)
 
@@ -157,12 +156,10 @@ def test_cp_guards_paged_and_quantized():
     params = init_dummy_params(CFG, seed=0)
     with pytest.raises(NotImplementedError, match="paged"):
         InferenceEngine(CFG, EngineConfig(
-            max_batch_size=4, max_seq_len=64, max_prefill_len=16,
-            kernels="xla", cp=2, kv_layout="paged"), params)
+            max_batch_size=4, max_seq_len=64, max_prefill_len=16, cp=2, kv_layout="paged"), params)
     with pytest.raises(NotImplementedError, match="bf16 or int8"):
         InferenceEngine(CFG, EngineConfig(
-            max_batch_size=4, max_seq_len=64, max_prefill_len=16,
-            kernels="xla", cp=2, kv_cache_dtype_name="float16"), params)
+            max_batch_size=4, max_seq_len=64, max_prefill_len=16, cp=2, kv_cache_dtype_name="float16"), params)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.utils import debug
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.utils import debug
 
 CFG = get_config("debug")
 
@@ -25,8 +25,7 @@ def _run(dump_dir, seed=0):
     debug.set_dump_dir(str(dump_dir))
     try:
         eng = InferenceEngine(CFG, EngineConfig(max_batch_size=2,
-                                                max_seq_len=64,
-                                                kernels="xla"),
+                                                max_seq_len=64),
                               init_dummy_params(CFG, seed=seed))
         eng.generate([[1, 5, 9]], SamplingParams(greedy=True,
                                                  max_new_tokens=3),
@@ -64,8 +63,7 @@ def test_tap_diff_catches_divergence(tmp_path):
 def test_tap_disabled_is_free(tmp_path):
     """Disabled tap inserts nothing (trace-time no-op)."""
     assert not debug.tap.enabled
-    eng = InferenceEngine(CFG, EngineConfig(max_batch_size=1, max_seq_len=32,
-                                            kernels="xla"),
+    eng = InferenceEngine(CFG, EngineConfig(max_batch_size=1, max_seq_len=32),
                           init_dummy_params(CFG, seed=0))
     eng.generate([[1, 2]], SamplingParams(greedy=True, max_new_tokens=2),
                  eos_token_id=None)

@@ -35,19 +35,19 @@ WORKER = textwrap.dedent("""
     import os, sys
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ.pop("XLA_FLAGS", None)
-    from llm_inference_engine_tpu.cli import _IdTokenizer
-    from llm_inference_engine_tpu.config import EngineConfig, get_config
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.chat_template import (
+    from llm_inference_engine.cli import _IdTokenizer
+    from llm_inference_engine.config import EngineConfig, get_config
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.chat_template import (
         get_chat_template)
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.runtime.engine import InferenceEngine
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
-    from llm_inference_engine_tpu.server import make_server
+    from llm_inference_engine.server import make_server
 
     cfg = get_config("debug")
     engine = InferenceEngine(
-        cfg, EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla",
+        cfg, EngineConfig(max_batch_size=2, max_seq_len=64,
                           kv_layout="paged", page_size=8,
                           max_prefill_len=8),
         init_dummy_params(cfg, seed=0))
@@ -139,15 +139,14 @@ def test_two_process_paged_router(tmp_path):
         assert all(v > 0 for v in served.values()), served
 
         # parity: each completion equals an uncontended single engine
-        from llm_inference_engine_tpu.config import (EngineConfig,
+        from llm_inference_engine.config import (EngineConfig,
                                                      SamplingParams,
                                                      get_config)
-        from llm_inference_engine_tpu.models.weights import init_dummy_params
-        from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+        from llm_inference_engine.models.weights import init_dummy_params
+        from llm_inference_engine.runtime.engine import InferenceEngine
         cfg = get_config("debug")
         solo = InferenceEngine(
-            cfg, EngineConfig(max_batch_size=2, max_seq_len=64,
-                              kernels="xla", kv_layout="paged", page_size=8,
+            cfg, EngineConfig(max_batch_size=2, max_seq_len=64, kv_layout="paged", page_size=8,
                               max_prefill_len=8),
             init_dummy_params(cfg, seed=0))
         for i, prompt in enumerate(PROMPTS):
@@ -161,7 +160,7 @@ def test_two_process_paged_router(tmp_path):
             solo.reset()
 
         # fleet /metrics: counters sum across replicas
-        from llm_inference_engine_tpu.server import aggregate_metrics
+        from llm_inference_engine.server import aggregate_metrics
         texts = []
         for port in ports:
             status, text = _get(port, "/metrics")
@@ -183,7 +182,7 @@ def test_two_process_paged_router(tmp_path):
 
 
 def test_aggregate_metrics_unit():
-    from llm_inference_engine_tpu.server import aggregate_metrics
+    from llm_inference_engine.server import aggregate_metrics
     a = ("# TYPE llm_tokens_generated_total counter\n"
          "llm_tokens_generated_total 10\n"
          "# TYPE llm_spec_acceptance_rate gauge\n"

@@ -8,16 +8,16 @@ plus multi-round history in the KV cache.
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
 
 CFG = get_config("debug")
 
 
 @pytest.fixture(scope="module")
 def engine():
-    eng = EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla")
+    eng = EngineConfig(max_batch_size=2, max_seq_len=64)
     params = init_dummy_params(CFG, seed=0)
     return InferenceEngine(CFG, eng, params)
 
@@ -84,8 +84,7 @@ def test_multi_round_history(engine):
     # silently missing from the cache, skewing every later round)
     def fresh():
         return InferenceEngine(
-            CFG, EngineConfig(max_batch_size=1, max_seq_len=64,
-                              kernels="xla"),
+            CFG, EngineConfig(max_batch_size=1, max_seq_len=64),
             init_dummy_params(CFG, seed=0))
 
     e1, e2 = fresh(), fresh()
@@ -112,9 +111,9 @@ def test_chunked_prefill_matches_single_shot():
     import dataclasses
     import numpy as np
     import jax.numpy as jnp
-    from llm_inference_engine_tpu.config import EngineConfig, get_config
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.config import EngineConfig, get_config
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
 
     cfg = get_config("debug")
     params = init_dummy_params(cfg, seed=0, scale=0.3)
@@ -123,7 +122,7 @@ def test_chunked_prefill_matches_single_shot():
                for n in (37, 5, 23)]
 
     def logits_with(prefill_chunk):
-        eng = EngineConfig(max_batch_size=3, max_seq_len=64, kernels="xla",
+        eng = EngineConfig(max_batch_size=3, max_seq_len=64,
                            max_prefill_len=prefill_chunk)
         engine = InferenceEngine(cfg, eng, params)
         return np.asarray(engine.prefill(prompts))
@@ -134,7 +133,7 @@ def test_chunked_prefill_matches_single_shot():
 
 
 def _fresh_engine():
-    eng = EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla")
+    eng = EngineConfig(max_batch_size=2, max_seq_len=64)
     return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
 
 
@@ -182,13 +181,12 @@ def test_multiround_append_near_capacity_matches_flat_replay(rng):
     history (silent corruption). The engine now shrinks the chunk bucket
     near capacity; appends at history 48 and 52 of a 64-slot cache must
     reproduce a one-shot prefill of the same 56 tokens exactly."""
-    from llm_inference_engine_tpu.config import EngineConfig, get_config
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.config import EngineConfig, get_config
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
     cfg = get_config("debug")
     params = init_dummy_params(cfg, seed=0)
-    eng = EngineConfig(max_batch_size=1, max_seq_len=64, max_prefill_len=16,
-                       kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=64, max_prefill_len=16)
     toks = rng.integers(0, cfg.vocab_size, size=56).tolist()
 
     e = InferenceEngine(cfg, eng, params)
@@ -213,15 +211,14 @@ def test_prefill_exact_fit_tail_and_mixed_batch_split(rng):
     bucket (13 tokens into 14 remaining rows); (b) a mixed batch of a
     near-capacity append and a long fresh admission must split into
     separate calls instead of refusing."""
-    from llm_inference_engine_tpu.config import EngineConfig, get_config
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.config import EngineConfig, get_config
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
     cfg = get_config("debug")
     params = init_dummy_params(cfg, seed=0)
 
     # (a) exact-fit tail
-    eng = EngineConfig(max_batch_size=1, max_seq_len=64, max_prefill_len=16,
-                       kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=64, max_prefill_len=16)
     toks = rng.integers(0, cfg.vocab_size, size=63).tolist()
     e = InferenceEngine(cfg, eng, params)
     e.prefill([toks[:50]])
@@ -232,7 +229,7 @@ def test_prefill_exact_fit_tail_and_mixed_batch_split(rng):
 
     # (b) mixed near-capacity append + long admission in ONE call
     eng2 = EngineConfig(max_batch_size=2, max_seq_len=64,
-                        max_prefill_len=32, kernels="xla")
+                        max_prefill_len=32)
     e3 = InferenceEngine(cfg, eng2, params)
     a = rng.integers(0, cfg.vocab_size, size=44).tolist()
     b = rng.integers(0, cfg.vocab_size, size=32).tolist()

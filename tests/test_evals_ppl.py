@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.evals.ppl import Scorer, perplexity, quant_ppl_report
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.evals.ppl import Scorer, perplexity, quant_ppl_report
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.ops import kv_cache as kvc
 
 
 @pytest.fixture(scope="module")
@@ -31,8 +31,7 @@ def setup():
 
 def _direct_nll(cfg, params, tokens):
     """Golden: single full-sequence forward, NLL of tokens[1:]."""
-    eng = EngineConfig(max_batch_size=1, max_seq_len=len(tokens),
-                       kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=len(tokens))
     cache = kvc.new_kv_cache(cfg.num_layers, 1, cfg.num_kv_heads,
                              len(tokens), cfg.head_dim, dtype=cfg.dtype)
     ids = jnp.asarray([tokens], jnp.int32)
@@ -49,7 +48,7 @@ def test_scorer_matches_direct(setup):
     cfg, params, tokens = setup
     want_nll, want_n = _direct_nll(cfg, params, tokens)
     # window larger than the stream: one window, exact match
-    nll, n = Scorer(cfg, params, EngineConfig(kernels="xla"),
+    nll, n = Scorer(cfg, params, EngineConfig(),
                     window=256, batch=2).score(tokens)
     assert n == want_n
     assert nll == pytest.approx(want_nll, rel=1e-4)
@@ -58,12 +57,12 @@ def test_scorer_matches_direct(setup):
 def test_windowing_counts_every_token_once(setup):
     cfg, params, tokens = setup
     # small windows: every token except the first predicted exactly once
-    nll, n = Scorer(cfg, params, EngineConfig(kernels="xla"),
+    nll, n = Scorer(cfg, params, EngineConfig(),
                     window=64, batch=3).score(tokens)
     assert n == len(tokens) - 1
     assert math.isfinite(nll) and nll > 0
     # batch size must not change the result
-    nll2, n2 = Scorer(cfg, params, EngineConfig(kernels="xla"),
+    nll2, n2 = Scorer(cfg, params, EngineConfig(),
                       window=64, batch=1).score(tokens)
     assert n2 == n
     assert nll2 == pytest.approx(nll, rel=1e-4)
@@ -74,7 +73,7 @@ def test_uniform_model_ppl_is_vocab_size(setup):
     # zero-scale weights -> uniform logits -> PPL == vocab size
     params = init_dummy_params(cfg, seed=0, scale=0.0)
     ppl = perplexity(cfg, params, tokens,
-                     EngineConfig(kernels="xla"), window=128, batch=2)
+                     EngineConfig(), window=128, batch=2)
     assert ppl == pytest.approx(cfg.vocab_size, rel=1e-3)
 
 
@@ -82,7 +81,7 @@ def test_quant_ppl_report(setup):
     cfg, params, tokens = setup
     rep = quant_ppl_report(cfg, params, tokens[:101], modes=("int8",),
                            group_size=32, window=128, batch=1,
-                           engine_config=EngineConfig(kernels="xla"))
+                           engine_config=EngineConfig())
     assert rep["fp"] > 1.0
     assert math.isfinite(rep["int8"])
     # int8 weight-only on a tiny random model stays close to fp

@@ -19,10 +19,10 @@ transformers = pytest.importorskip("transformers")
 
 import jax.numpy as jnp
 
-from llm_inference_engine_tpu.config import EngineConfig, ModelConfig
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import load_hf_safetensors
-from llm_inference_engine_tpu.ops import kv_cache as kvc
+from llm_inference_engine.config import EngineConfig, ModelConfig
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import load_hf_safetensors
+from llm_inference_engine.ops import kv_cache as kvc
 
 
 @pytest.fixture(scope="module")
@@ -49,8 +49,7 @@ def hf_setup(tmp_path_factory):
 
 
 def _ours_logits(cfg, params, ids, incremental=False):
-    eng = EngineConfig(max_batch_size=ids.shape[0], max_seq_len=64,
-                       kernels="xla")
+    eng = EngineConfig(max_batch_size=ids.shape[0], max_seq_len=64)
     cache = kvc.new_kv_cache(cfg.num_layers, ids.shape[0], cfg.num_kv_heads,
                              64, cfg.head_dim, dtype=jnp.float32)
     B, T = ids.shape
@@ -95,8 +94,8 @@ def test_incremental_decode_matches_hf(hf_setup, rng):
 
 def test_greedy_tokens_match_hf(hf_setup, rng):
     model, cfg, params = hf_setup
-    from llm_inference_engine_tpu.config import SamplingParams
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.config import SamplingParams
+    from llm_inference_engine.runtime.engine import InferenceEngine
     prompt = rng.integers(0, cfg.vocab_size, size=(6,)).tolist()
     with torch.no_grad():
         hf_out = model.generate(
@@ -104,7 +103,7 @@ def test_greedy_tokens_match_hf(hf_setup, rng):
             pad_token_id=0)
     hf_tokens = hf_out[0, len(prompt):].tolist()
     engine = InferenceEngine(
-        cfg, EngineConfig(max_batch_size=1, max_seq_len=64, kernels="xla"),
+        cfg, EngineConfig(max_batch_size=1, max_seq_len=64),
         params)
     r = engine.generate([prompt], SamplingParams(greedy=True,
                                                  max_new_tokens=8),

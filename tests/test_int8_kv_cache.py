@@ -7,12 +7,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
-from llm_inference_engine_tpu.ops.attention import attention, attention_xla
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.ops import kv_cache as kvc
+from llm_inference_engine.ops.attention import attention, attention_ref
+from llm_inference_engine.runtime.engine import InferenceEngine
 
 CFG = get_config("debug")
 
@@ -30,13 +30,12 @@ def test_attention_with_int8_cache_close_to_fp(rng):
 
     qs = np.array([0, 10], np.int32)
     kl = np.array([6, 16], np.int32)
-    want = attention_xla(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf),
+    want = attention_ref(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf),
                          jnp.asarray(qs), jnp.asarray(kl))
     got = attention(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
                     jnp.asarray(qs), jnp.asarray(kl),
                     k_scale=jnp.asarray(ks.astype(np.float32)),
-                    v_scale=jnp.asarray(vs.astype(np.float32)),
-                    kernels="pallas", block_q=8, block_kv=16)
+                    v_scale=jnp.asarray(vs.astype(np.float32)))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=0.05,
                                rtol=0.05)
 
@@ -47,7 +46,7 @@ def test_model_forward_int8_cache_close_to_fp():
     # marginal for some draws on a random model
     rng = np.random.default_rng(7)
     params = init_dummy_params(CFG, seed=0)
-    eng = EngineConfig(max_batch_size=1, max_seq_len=32, kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=32)
     ids = rng.integers(0, CFG.vocab_size, size=(1, 10)).astype(np.int32)
 
     def run(quantized):
@@ -67,7 +66,7 @@ def test_model_forward_int8_cache_close_to_fp():
 
 
 def test_engine_generate_with_int8_cache(rng):
-    eng = EngineConfig(max_batch_size=1, max_seq_len=48, kernels="xla",
+    eng = EngineConfig(max_batch_size=1, max_seq_len=48,
                        kv_cache_dtype_name="int8")
     engine = InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
     assert engine.cache.quantized
@@ -76,7 +75,7 @@ def test_engine_generate_with_int8_cache(rng):
     assert len(r.token_ids[0]) == 6
 
     # must roughly track the fp-cache engine (same weights, same prompt)
-    eng2 = EngineConfig(max_batch_size=1, max_seq_len=48, kernels="xla")
+    eng2 = EngineConfig(max_batch_size=1, max_seq_len=48)
     engine2 = InferenceEngine(CFG, eng2, init_dummy_params(CFG, seed=0))
     r2 = engine2.generate([[1, 2, 3, 4]], sp, eos_token_id=None)
     # first token comes from prefill logits; int8 cache noise may diverge
@@ -86,7 +85,7 @@ def test_engine_generate_with_int8_cache(rng):
 
 def test_embedded_scale_roundtrip(rng):
     """Embedded log2-scale codes dequantize exactly to the snapped scale."""
-    from llm_inference_engine_tpu.ops.kv_cache import (
+    from llm_inference_engine.ops.kv_cache import (
         EMBED_PAD, decode_embedded_scales, quantize_kv_embedded)
     x = rng.normal(size=(2, 5, 8, 128)).astype(np.float32) * 3.0
     packed = quantize_kv_embedded(jnp.asarray(x))
@@ -99,9 +98,8 @@ def test_embedded_scale_roundtrip(rng):
 
 def test_attention_embedded_matches_separate_scales(rng):
     """Embedded-scale attention == separate-scale attention on the same
-    quantized values (XLA golden; the Pallas kernel path shares the exact
-    decode_embedded_scales math)."""
-    from llm_inference_engine_tpu.ops.kv_cache import (
+    quantized values, and both match the f32 reference."""
+    from llm_inference_engine.ops.kv_cache import (
         decode_embedded_scales, quantize_kv_embedded)
     B, S, K, D = 2, 16, 8, 128
     kf = rng.normal(size=(B, S, K, D)).astype(np.float32)
@@ -112,31 +110,28 @@ def test_attention_embedded_matches_separate_scales(rng):
     qs = jnp.asarray(np.array([4, 15], np.int32))
     kl = qs + 1
 
-    emb = attention(q, packed_k, packed_v, qs, kl, kernels="xla",
+    emb = attention(q, packed_k, packed_v, qs, kl,
                     embedded_kv=True)
     ks = decode_embedded_scales(packed_k[:, :, K, :], K)
     vs = decode_embedded_scales(packed_v[:, :, K, :], K)
-    sep = attention(q, packed_k[:, :, :K], packed_v[:, :, :K], qs, kl,
-                    kernels="xla", k_scale=ks, v_scale=vs)
+    sep = attention(q, packed_k[:, :, :K], packed_v[:, :, :K], qs, kl, k_scale=ks, v_scale=vs)
     np.testing.assert_allclose(np.asarray(emb), np.asarray(sep),
                                atol=1e-5, rtol=1e-5)
-    # and pallas interpret path (MXU decode kernel: p/v dots run in bf16,
-    # same precision as the prefill MXU path — tolerance is bf16-level)
-    embp = attention(q, packed_k, packed_v, qs, kl, kernels="pallas",
-                     embedded_kv=True, block_kv=8)
-    np.testing.assert_allclose(np.asarray(embp), np.asarray(emb),
+    # and the f32 reference over the same embedded rows
+    embr = attention_ref(q, packed_k, packed_v, qs, kl, embedded_kv=True)
+    np.testing.assert_allclose(np.asarray(embr), np.asarray(emb),
                                atol=1.5e-2, rtol=1.5e-2)
 
 
 def test_engine_embedded_cache_forward(rng):
     """Full forward with an embedded-scale cache tracks the fp-cache
     forward (uses a config meeting the alignment requirements)."""
-    from llm_inference_engine_tpu.config import ModelConfig
+    from llm_inference_engine.config import ModelConfig
     cfg = ModelConfig(name="emb-test", vocab_size=128, hidden_size=128,
                       intermediate_size=256, num_layers=2, num_heads=8,
                       num_kv_heads=8, head_dim=128, dtype_name="float32")
     params = init_dummy_params(cfg, seed=1)
-    eng = EngineConfig(max_batch_size=1, max_seq_len=32, kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=32)
     ids = np.random.default_rng(3).integers(
         0, cfg.vocab_size, size=(1, 10)).astype(np.int32)
 

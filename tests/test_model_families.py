@@ -3,7 +3,7 @@ projection bias (Qwen2-class).
 
 The reference is Llama2-only; its QKV+RoPE kernel carried a bias input it
 never used (qkv_bias_and_rope.cu:97) — implemented here. Golden checks:
-brute-force numpy SWA mask, Pallas-vs-XLA kernel parity, and end-to-end HF
+brute-force numpy SWA mask, production-vs-reference attention, and end-to-end HF
 logits parity for tiny random Mistral / Qwen2 checkpoints through the full
 loader + forward + KV-cache path (same harness as test_hf_parity.py).
 """
@@ -13,11 +13,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from llm_inference_engine_tpu.config import EngineConfig, ModelConfig, get_config
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.ops import kv_cache as kvc
-from llm_inference_engine_tpu.ops.attention import (
-    _attention_decode_mxu, attention, attention_xla)
+from llm_inference_engine.config import EngineConfig, ModelConfig, get_config
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.ops import kv_cache as kvc
+from llm_inference_engine.ops.attention import attention, attention_ref
 
 
 # ---------------------------------------------------------------------------
@@ -56,14 +55,14 @@ def test_swa_xla_vs_naive(rng):
     v = rng.standard_normal((B, S, K, D)).astype(np.float32)
     q_start = np.array([3, 9], np.int32)
     kv_len = np.array([8, 14], np.int32)
-    ours = np.asarray(attention_xla(
+    ours = np.asarray(attention_ref(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray(q_start), jnp.asarray(kv_len), window=W))
     ref = _naive_swa(q, k, v, q_start, kv_len, W)
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
 
 
-def test_swa_pallas_prefill_vs_xla(rng):
+def test_swa_prefill_vs_reference(rng):
     B, Sq, H, K, D, S = 2, 12, 4, 2, 16, 64
     W = 10
     q = jnp.asarray(rng.standard_normal((B, Sq, H, D)), jnp.float32)
@@ -71,16 +70,14 @@ def test_swa_pallas_prefill_vs_xla(rng):
     v = jnp.asarray(rng.standard_normal((B, S, K, D)), jnp.float32)
     qs = jnp.asarray(np.array([0, 20], np.int32))
     kl = jnp.asarray(np.array([12, 32], np.int32))
-    a = attention(q, k, v, qs, kl, kernels="pallas", block_q=8, block_kv=16,
-                  window=W)
-    b = attention_xla(q, k, v, qs, kl, window=W)
+    a = attention(q, k, v, qs, kl, window=W)
+    b = attention_ref(q, k, v, qs, kl, window=W)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=2e-5, atol=2e-5)
 
 
-def test_swa_mxu_decode_vs_xla(rng):
-    """MXU block-diagonal decode with a window: in-window keys only, and
-    blocks below the window skipped (clamped index map)."""
+def test_swa_decode_vs_reference(rng):
+    """Decode with a window, bounded by kv_hi: in-window keys only."""
     B, H, K, D, S = 2, 8, 8, 128, 64
     W = 24
     q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.float32)
@@ -88,9 +85,8 @@ def test_swa_mxu_decode_vs_xla(rng):
     v = jnp.asarray(rng.standard_normal((B, S, K, D)), jnp.float32)
     kl = jnp.asarray(np.array([40, 9], np.int32))
     qs = kl - 1
-    a = _attention_decode_mxu(q, k, v, qs, kl, 1.0 / np.sqrt(D), 16, True,
-                              window=W)
-    b = attention_xla(q, k, v, qs, kl, window=W)
+    a = attention(q, k, v, qs, kl, window=W, kv_hi=48)
+    b = attention_ref(q, k, v, qs, kl, window=W)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=2e-5, atol=2e-5)
 
@@ -126,7 +122,7 @@ transformers = pytest.importorskip("transformers")
 def _hf_round_trip(tmp_path, hf_model, our_cfg, ids):
     """Save the HF model, load through our pipeline, compare prefill
     logits at every position and incremental single-token decode."""
-    from llm_inference_engine_tpu.models.weights import load_hf_safetensors
+    from llm_inference_engine.models.weights import load_hf_safetensors
 
     ckpt = tmp_path / "ckpt"
     hf_model.save_pretrained(str(ckpt), safe_serialization=True)
@@ -135,8 +131,7 @@ def _hf_round_trip(tmp_path, hf_model, our_cfg, ids):
     with torch.no_grad():
         ref = hf_model(torch.from_numpy(ids)).logits.numpy()
 
-    eng = EngineConfig(max_batch_size=ids.shape[0], max_seq_len=64,
-                       kernels="xla")
+    eng = EngineConfig(max_batch_size=ids.shape[0], max_seq_len=64)
     B, T = ids.shape
 
     def fresh_cache():
@@ -196,7 +191,7 @@ def test_llama31_rope_scaling_parity(tmp_path, rng):
 
     cfg = ModelConfig.from_dict(hf_cfg.to_dict()).replace(
         name="llama31-tiny", head_dim=16, dtype_name="float32")
-    from llm_inference_engine_tpu.config import RopeScaling
+    from llm_inference_engine.config import RopeScaling
     assert isinstance(cfg.rope_scaling, RopeScaling)
     # positions beyond original_max_position_embeddings exercise the
     # low-frequency slowed bands
@@ -204,18 +199,33 @@ def test_llama31_rope_scaling_parity(tmp_path, rng):
     _hf_round_trip(tmp_path, model, cfg, ids)
 
 
-def test_rope_scaling_pallas_vs_xla(rng):
-    from llm_inference_engine_tpu.config import RopeScaling
-    from llm_inference_engine_tpu.ops.rope import apply_rope, apply_rope_xla
+def test_rope_scaling_matches_numpy(rng):
+    """llama3 frequency-dependent scaling against a float64 numpy rotation
+    with the HF formula for the scaled inverse frequencies."""
+    from llm_inference_engine.config import RopeScaling
+    from llm_inference_engine.ops.rope import apply_rope
 
     rs = RopeScaling(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
                      original_max_position_embeddings=32)
     x = jnp.asarray(rng.standard_normal((2, 6, 4, 16)), jnp.float32)
     pos = jnp.asarray(rng.integers(0, 120, size=(2, 6)), jnp.int32)
-    a = apply_rope(x, pos, theta=10000.0, scaling=rs, kernels="pallas")
-    b = apply_rope_xla(x, pos, theta=10000.0, scaling=rs)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                               rtol=1e-5, atol=1e-5)
+    a = apply_rope(x, pos, theta=10000.0, scaling=rs)
+    D = 16
+    inv = 1.0 / 10000.0 ** (np.arange(D // 2) * 2.0 / D)
+    wavelen = 2 * np.pi / inv
+    orig = rs.original_max_position_embeddings
+    smooth = np.clip((orig / wavelen - rs.low_freq_factor)
+                     / (rs.high_freq_factor - rs.low_freq_factor), 0, 1)
+    inv = np.where(wavelen < orig / rs.high_freq_factor, inv,
+                   np.where(wavelen > orig / rs.low_freq_factor,
+                            inv / rs.factor,
+                            (1 - smooth) * inv / rs.factor + smooth * inv))
+    ang = np.asarray(pos, np.float64)[..., None, None] * inv   # [2,6,1,8]
+    xn = np.asarray(x, np.float64)
+    x1, x2 = xn[..., :D // 2], xn[..., D // 2:]
+    b = np.concatenate([x1 * np.cos(ang) - x2 * np.sin(ang),
+                        x2 * np.cos(ang) + x1 * np.sin(ang)], axis=-1)
+    np.testing.assert_allclose(np.asarray(a), b, rtol=1e-5, atol=1e-5)
     assert get_config("llama3.1-8b").rope_scaling is not None
 
 

@@ -13,13 +13,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params, quantize_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params, quantize_params
+from llm_inference_engine.ops import kv_cache as kvc
 
 CFG = get_config("debug")
-ENG = EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla")
+ENG = EngineConfig(max_batch_size=2, max_seq_len=64)
 
 
 def _full_context_logits(params, token_ids, upto):
@@ -82,23 +82,29 @@ def test_ragged_batch_prefill(params, rng):
     np.testing.assert_allclose(both[1], solo_b[0], atol=2e-4, rtol=2e-4)
 
 
-def test_pallas_interpret_full_forward_matches_xla(params, rng):
-    """The whole model with pallas kernels (interpret) vs pure XLA."""
-    eng_pl = EngineConfig(max_batch_size=1, max_seq_len=64, kernels="pallas",
-                          block_q=8, block_kv=16)
-    ids = rng.integers(0, CFG.vocab_size, size=(1, 8)).astype(np.int32)
-    cache1 = kvc.new_kv_cache(CFG.num_layers, 1, CFG.num_kv_heads, 64,
-                              CFG.head_dim, dtype=CFG.dtype)
-    cache2 = kvc.new_kv_cache(CFG.num_layers, 1, CFG.num_kv_heads, 64,
-                              CFG.head_dim, dtype=CFG.dtype)
-    qs = jnp.zeros((1,), jnp.int32)
-    kl = jnp.asarray([8], jnp.int32)
-    l_pl, _ = M.forward_hidden(CFG, eng_pl, params, jnp.asarray(ids), cache1,
-                               qs, kl)
-    l_xla, _ = M.forward_hidden(CFG, ENG, params, jnp.asarray(ids), cache2,
-                                qs, kl)
-    np.testing.assert_allclose(np.asarray(l_pl), np.asarray(l_xla),
-                               atol=5e-4, rtol=5e-4)
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_full_forward_matches_reference(params, rng, quant):
+    """The production forward (chunked prefill through the cache, then
+    decode steps) reproduces the float32 reference forward's logits at
+    every position (models/reference.py)."""
+    from llm_inference_engine.models.reference import reference_logits
+    from llm_inference_engine.models.weights import quantize_params
+    p = params if quant == "none" else quantize_params(params, quant, 16)
+    ids = rng.integers(0, CFG.vocab_size, size=(2, 12)).astype(np.int32)
+    want = np.asarray(reference_logits(CFG, p, ids))           # [2, 12, V]
+    cache = kvc.new_kv_cache(CFG.num_layers, 2, CFG.num_kv_heads, 64,
+                             CFG.head_dim, dtype=CFG.dtype)
+    logits, cache = M.forward_hidden(
+        CFG, ENG, p, jnp.asarray(ids[:, :8]), cache,
+        jnp.zeros((2,), jnp.int32), jnp.full((2,), 8, jnp.int32))
+    got = [np.asarray(logits)]
+    for t in range(8, 12):
+        logits, cache = M.forward_hidden(
+            CFG, ENG, p, jnp.asarray(ids[:, t:t + 1]), cache,
+            jnp.full((2,), t, jnp.int32), jnp.full((2,), t + 1, jnp.int32))
+        got.append(np.asarray(logits))
+    np.testing.assert_allclose(np.stack(got, 1), want[:, 7:], atol=5e-4,
+                               rtol=5e-4)
 
 
 def test_quantized_model_close_to_fp(params, rng):

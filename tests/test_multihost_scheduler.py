@@ -11,15 +11,15 @@ only the all-gather widens.)
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import (EngineConfig, SamplingParams,
+from llm_inference_engine.config import (EngineConfig, SamplingParams,
                                              get_config)
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.parallel.multihost import (StepPlan,
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.parallel.multihost import (StepPlan,
                                                          agree_step_plan)
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.multihost_scheduler import (
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.multihost_scheduler import (
     MultiHostScheduler, RequestRouter)
-from llm_inference_engine_tpu.runtime.scheduler import (
+from llm_inference_engine.runtime.scheduler import (
     ContinuousBatchingScheduler)
 
 CFG = get_config("debug")
@@ -27,7 +27,7 @@ EOS = None  # dummy models rarely emit a fixed eos; use length stops
 
 
 def _engine(batch=3, seq=64):
-    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq, kernels="xla")
+    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq)
     return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
 
 
@@ -66,13 +66,12 @@ def test_lockstep_long_prompt_watermark(rng):
     """Regression: the agreed kv watermark must cover lengths AFTER the
     admission prefill. A 300-token prompt against the 256-token watermark
     floor previously decoded with attention truncated at 256 (wrong
-    tokens). Needs pallas kernels — the XLA path ignores kv_hi."""
+    tokens): attention reads only rows below kv_hi."""
     rng_a = np.random.default_rng(3)
     rng_b = np.random.default_rng(3)
 
     def engine():
-        eng = EngineConfig(max_batch_size=1, max_seq_len=512,
-                           kernels="pallas", block_q=64, block_kv=64)
+        eng = EngineConfig(max_batch_size=1, max_seq_len=512)
         return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
 
     ids = rng_a.integers(0, CFG.vocab_size, size=300).tolist()

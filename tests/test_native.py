@@ -15,7 +15,7 @@ import struct
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.native import native_available
+from llm_inference_engine.native import native_available
 
 
 pytestmark = pytest.mark.skipif(
@@ -53,8 +53,8 @@ def _toy_pieces():
 
 @pytest.fixture(scope="module")
 def tok_pair():
-    from llm_inference_engine_tpu.tokenizer.bpe import BPETokenizer
-    from llm_inference_engine_tpu.tokenizer.native import (
+    from llm_inference_engine.tokenizer.bpe import BPETokenizer
+    from llm_inference_engine.tokenizer.native import (
         NativeBPETokenizer, wrap_native)
     py = BPETokenizer(_toy_pieces())
     nat = wrap_native(py)
@@ -114,7 +114,7 @@ def test_tokenizer_byte_fallback(tok_pair):
 ])
 def test_cast_exact(src, dst):
     import ml_dtypes
-    from llm_inference_engine_tpu.runtime.native_io import cast_array
+    from llm_inference_engine.runtime.native_io import cast_array
     dt = {"bfloat16": ml_dtypes.bfloat16}.get(src, src)
     rng = np.random.default_rng(0)
     x = rng.standard_normal(5000).astype(np.float32) * 100
@@ -127,7 +127,7 @@ def test_cast_exact(src, dst):
 
 
 def test_cast_specials():
-    from llm_inference_engine_tpu.runtime.native_io import cast_array
+    from llm_inference_engine.runtime.native_io import cast_array
     x = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 65504.0, 6e-8,
                   -6e-8, 1e-45], np.float32)
     got = cast_array(x.astype(np.float16), np.float32)
@@ -140,7 +140,7 @@ def test_cast_specials():
 @pytest.mark.parametrize("shape", [(3, 5), (64, 64), (130, 70), (1, 257)])
 def test_transpose_cast(shape):
     import ml_dtypes
-    from llm_inference_engine_tpu.runtime.native_io import transpose_cast
+    from llm_inference_engine.runtime.native_io import transpose_cast
     rng = np.random.default_rng(1)
     x = rng.standard_normal(shape).astype(np.float16)
     got = transpose_cast(x, np.float32)
@@ -173,7 +173,7 @@ def _write_safetensors(path, tensors):
 
 def test_safetensors_native_reader(tmp_path):
     import ml_dtypes
-    from llm_inference_engine_tpu.runtime.native_io import SafeTensorsFile
+    from llm_inference_engine.runtime.native_io import SafeTensorsFile
     rng = np.random.default_rng(2)
     tensors = {
         "a": rng.standard_normal((17, 33)).astype(np.float16),
@@ -194,7 +194,7 @@ def test_safetensors_native_reader(tmp_path):
 
 
 def test_read_bin_tensor(tmp_path):
-    from llm_inference_engine_tpu.runtime.native_io import read_bin_tensor
+    from llm_inference_engine.runtime.native_io import read_bin_tensor
     rng = np.random.default_rng(3)
     x = rng.standard_normal((11, 13)).astype(np.float32)
     p = tmp_path / "t.bin"

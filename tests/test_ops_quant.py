@@ -1,17 +1,17 @@
-"""Unit tests: INT8/INT4 weight quantization + fused dequant matmul.
+"""Unit tests: INT8/INT4 weight quantization + the quantized matmul.
 
 No reference counterpart exists — quantization was planned, never built
 (reference README.md:36-39) — so the goldens here are the quantization
-error bound and the XLA dequant matmul.
+error bound and the f32 dequantize-then-matmul reference.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.ops.quant import (
+from llm_inference_engine.ops.quant import (
     QuantizedTensor, dequantize_tensor, quantize_tensor, quantized_linear,
-    quantized_linear_xla)
+    quantized_linear_ref)
 
 
 @pytest.mark.parametrize("mode,tol", [("int8", 0.012), ("int4", 0.16)])
@@ -26,12 +26,12 @@ def test_quantize_roundtrip_error(rng, mode, tol):
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 @pytest.mark.parametrize("m,k,n", [(5, 256, 128), (64, 512, 384), (1, 128, 256)])
-def test_quantized_linear_pallas_vs_xla(rng, mode, m, k, n):
+def test_quantized_linear_matches_reference(rng, mode, m, k, n):
     w = rng.normal(size=(k, n)).astype(np.float32)
     x = rng.normal(size=(m, k)).astype(np.float32)
     t = quantize_tensor(jnp.asarray(w), mode, 128)
-    got = np.asarray(quantized_linear(jnp.asarray(x), t, kernels="pallas"))
-    want = np.asarray(quantized_linear_xla(jnp.asarray(x), t))
+    got = np.asarray(quantized_linear(jnp.asarray(x), t))
+    want = np.asarray(quantized_linear_ref(jnp.asarray(x), t))
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3)
 
 
@@ -41,7 +41,7 @@ def test_quantized_linear_close_to_full_precision(rng, mode):
     w = (rng.normal(size=(k, n)) * 0.02).astype(np.float32)
     x = rng.normal(size=(8, k)).astype(np.float32)
     t = quantize_tensor(jnp.asarray(w), mode, 128)
-    got = np.asarray(quantized_linear(jnp.asarray(x), t, kernels="pallas"))
+    got = np.asarray(quantized_linear(jnp.asarray(x), t))
     want = x @ w
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < (0.02 if mode == "int8" else 0.2), rel
@@ -51,35 +51,21 @@ def test_quantized_linear_close_to_full_precision(rng, mode):
 @pytest.mark.parametrize("k", [1280, 1408])
 def test_quantized_linear_ragged_k(rng, mode, k):
     """Contraction dims that 1024 does not divide (Llama's 11008 FFN dim is
-    the production case). The int8 kernel masks the ragged last K block's x
-    tail; the int4 kernel picks a divisor block (ops/quant._pick_bk) — on
-    real hardware the unmasked/non-divisor form read unspecified
-    out-of-bounds block data (~16% error at 7B)."""
+    the production case) must match the reference like any other."""
     n, m = 256, 8
     w = (rng.normal(size=(k, n)) * 0.02).astype(np.float32)
     x = rng.normal(size=(m, k)).astype(np.float32)
     t = quantize_tensor(jnp.asarray(w), mode, 128)
-    got = np.asarray(quantized_linear(jnp.asarray(x), t, kernels="pallas"))
-    want = np.asarray(quantized_linear_xla(jnp.asarray(x), t))
+    got = np.asarray(quantized_linear(jnp.asarray(x), t))
+    want = np.asarray(quantized_linear_ref(jnp.asarray(x), t))
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3)
-
-
-def test_pick_bk_divisor_plan():
-    from llm_inference_engine_tpu.ops.quant import _pick_bk
-    assert _pick_bk(4096, 128) == 1024
-    assert _pick_bk(11008, 128) == 5504     # only tiny divisors <= 1024
-    assert _pick_bk(13824, 128) == 768      # 13B FFN dim
-    assert _pick_bk(5632, 128) == 512       # TinyLlama FFN dim
-    assert _pick_bk(512, 128) == 512        # k <= target: one full block
-    for k, bk in ((4096, 1024), (11008, 5504), (13824, 768), (5632, 512)):
-        assert k % bk == 0
 
 
 def test_int4_pack_is_sublane_interleaved(rng):
     """Byte r must hold row 2r in the low nibble and row 2r+1 in the high —
-    the exact layout pltpu.bitcast(..., int4) unpacks (hardware sub-byte
-    cast; any other layout silently permutes the weight rows)."""
-    from llm_inference_engine_tpu.ops.quant import _pack_int4, _unpack_int4
+    the layout the matmul's even/odd split reads (any other layout
+    silently permutes the weight rows)."""
+    from llm_inference_engine.ops.quant import _pack_int4, _unpack_int4
     q = rng.integers(-8, 8, size=(16, 4)).astype(np.int8)
     packed = np.asarray(_pack_int4(jnp.asarray(q)))
     assert packed.shape == (8, 4)
@@ -107,13 +93,9 @@ def test_quantized_tensor_is_pytree():
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 @pytest.mark.parametrize("structured", [False, True])
 def test_quantized_linear_large_m_prefill_path(rng, mode, structured):
-    """m >= _PREFILL_M routes to the dequant-once + bf16-dot path
-    (ops/quant._large_m_linear). int8 must match the XLA golden to bf16
-    accumulation noise (int8->bf16 cast is exact, scales post-dot); int4
-    additionally bakes grouped scales into bf16 weights (~2^-9 relative).
-    Covers per-layer, stacked, and the structured gate|up stack layouts."""
-    from llm_inference_engine_tpu.ops.quant import _PREFILL_M
-    m, k, n, L = _PREFILL_M, 256, 128, 2
+    """Prefill-sized m (1024 rows) must match the f32 reference. Covers
+    per-layer, stacked, and the structured gate|up stack layouts."""
+    m, k, n, L = 1024, 256, 128, 2
     x = rng.normal(size=(m, k)).astype(np.float32)
     if structured:
         ws = [(rng.normal(size=(2, k, n)) * 0.02).astype(np.float32)
@@ -128,81 +110,109 @@ def test_quantized_linear_large_m_prefill_path(rng, mode, structured):
                              for row in ts]),
             mode=mode, group_size=128)
         got = np.asarray(quantized_linear(
-            jnp.asarray(x), stacked, kernels="pallas", layer=jnp.int32(1)))
+            jnp.asarray(x), stacked, layer=jnp.int32(1)))
         want = np.concatenate(
-            [np.asarray(quantized_linear_xla(jnp.asarray(x), ts[1][s]))
+            [np.asarray(quantized_linear_ref(jnp.asarray(x), ts[1][s]))
              for s in range(2)], axis=-1)
     else:
         w = (rng.normal(size=(k, n)) * 0.02).astype(np.float32)
         t = quantize_tensor(jnp.asarray(w), mode, 128)
-        got = np.asarray(quantized_linear(jnp.asarray(x), t,
-                                          kernels="pallas"))
-        want = np.asarray(quantized_linear_xla(jnp.asarray(x), t))
+        got = np.asarray(quantized_linear(jnp.asarray(x), t))
+        want = np.asarray(quantized_linear_ref(jnp.asarray(x), t))
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 0.02, rel
 
 
-def test_dequant_int4_pallas_matches_golden(rng):
-    """The dequant-materialize kernel (large-m int4 prefill path) must
-    reproduce dequantize_tensor up to one bf16 rounding."""
-    from llm_inference_engine_tpu.ops.quant import (
-        _dequant_int4_pallas, _plan_dequant_blocks)
-    k, n, g = 512, 256, 128
+def test_int4_nibbles_are_even_and_odd_rows(rng):
+    """The matmul's unpack: low nibbles are the even contraction rows and
+    high nibbles the odd ones, sign-extended."""
+    from llm_inference_engine.ops.quant import _nibbles, _pack_int4
+    q = rng.integers(-8, 8, size=(32, 16)).astype(np.int8)
+    lo, hi = _nibbles(_pack_int4(jnp.asarray(q)))
+    np.testing.assert_array_equal(np.asarray(lo), q[0::2])
+    np.testing.assert_array_equal(np.asarray(hi), q[1::2])
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("m", [8, 512])
+def test_quantized_linear_bf16_activations(rng, mode, m):
+    """Production numerics: bf16 activations and weights (int4 scales
+    folded in at bf16), f32 accumulation — within bf16 rounding of the
+    f32 reference."""
+    k, n = 1024, 256
     w = (rng.normal(size=(k, n)) * 0.02).astype(np.float32)
-    t = quantize_tensor(jnp.asarray(w), "int4", g)
-    plan = _plan_dequant_blocks(k, n, g)
-    assert plan is not None
-    got = np.asarray(_dequant_int4_pallas(t.q, t.scale, g, *plan, True))
-    want = np.asarray(dequantize_tensor(t))
-    rel = np.abs(got.astype(np.float32) - want).max() / np.abs(want).max()
-    assert rel < 2 ** -8, rel
+    x = jnp.asarray(rng.normal(size=(m, k)), jnp.bfloat16)
+    t = quantize_tensor(jnp.asarray(w), mode, 128)
+    got = np.asarray(quantized_linear(x, t, out_dtype=jnp.float32))
+    want = np.asarray(quantized_linear_ref(x, t, out_dtype=jnp.float32))
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert rel < 2 ** -7, rel
 
 
-def test_dequant_plan_shapes():
-    """Block plans for the real model contractions: blocks always DIVIDE
-    both dims (ragged blocks read unspecified memory on hardware)."""
-    from llm_inference_engine_tpu.ops.quant import _plan_dequant_blocks
-    for k, n in [(4096, 11008), (11008, 4096), (4096, 12288),
-                 (5120, 13824), (2048, 5632), (4096, 32000)]:
-        plan = _plan_dequant_blocks(k, n, 128)
-        assert plan is not None, (k, n)
-        bk, bn = plan
-        assert k % bk == 0 and n % bn == 0 and bk % 128 == 0, (k, n, plan)
-    # shapes the kernel must refuse (fall back to XLA unpack)
-    assert _plan_dequant_blocks(384 + 16, 128, 128) is None
+@pytest.mark.parametrize("m", [5, 40])
+@pytest.mark.parametrize("k", [512, 640])
+def test_int4_kernel_interpret_matches_reference(rng, m, k):
+    """The Pallas int4 kernel (interpret mode) on stacked weights at a
+    traced layer: row padding, 2- or 4-way group splits."""
+    from llm_inference_engine.ops.quant import int4_matmul_kernel
+    n, L = 256, 2
+    ts = [quantize_tensor(jnp.asarray(rng.normal(size=(k, n)) * 0.02,
+                                      jnp.float32), "int4", 128)
+          for _ in range(L)]
+    q = jnp.stack([t.q for t in ts])
+    s = jnp.stack([t.scale for t in ts])
+    x = jnp.asarray(rng.normal(size=(m, k)), jnp.bfloat16)
+    got = np.asarray(int4_matmul_kernel(x, q, s, jnp.int32(1), 128,
+                                        interpret=True))
+    want = np.asarray(quantized_linear_ref(x, ts[1], out_dtype=jnp.float32))
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert rel < 1e-5, rel
 
 
-def test_plan_blocks_never_drops_production_shapes():
-    """Every production (m, n, k) matmul shape must get a Pallas plan —
-    a None plan silently falls back to XLA dequant-materialization,
-    measured as a 9.8x decode cliff when 13B's down projection hit it
-    (r4: inter=13824 has no grouped-divisor K block, and the full-K
-    weight block needed bn to shrink below its default)."""
-    from llm_inference_engine_tpu.ops.quant import _plan_blocks, quantize_tensor
+def test_int4_kernel_route_layouts(rng, monkeypatch):
+    """quantized_linear's kernel route covers the per-layer weight, the
+    stacked weight and the structured gate|up stack (interpret mode)."""
+    import functools
+    from llm_inference_engine.ops import quant as Q
+    monkeypatch.setattr(Q, "_on_gpu", lambda: True)
+    monkeypatch.setattr(Q, "int4_matmul_kernel", functools.partial(
+        Q.int4_matmul_kernel, interpret=True))
+    k, I, L = 256, 128, 2
+    x = jnp.asarray(rng.normal(size=(3, k)), jnp.bfloat16)
+    w = (rng.normal(size=(L, k, 2, I)) * 0.02).astype(np.float32)
+    from llm_inference_engine.models.weights import quantize_params
+    p = quantize_params({"embed": None, "final_norm": None,
+                         "layers": {"wqkv": jnp.asarray(w[..., 0, :]),
+                                    "wo": jnp.asarray(w[..., 1, :]),
+                                    "w_gate_up": jnp.asarray(w),
+                                    "w_down": jnp.asarray(w[..., 0, :])},
+                         "lm_head": jnp.asarray(w[0, :, 0, :])}, "int4", 128)
+    for t, ly in ((p["layers"]["wqkv"], 1), (p["layers"]["w_gate_up"], 1),
+                  (p["lm_head"], None)):
+        got = np.asarray(Q.quantized_linear(x, t, out_dtype=jnp.float32,
+                                            layer=None if ly is None
+                                            else jnp.int32(ly)))
+        monkeypatch.setattr(Q, "_on_gpu", lambda: False)
+        want = np.asarray(Q.quantized_linear(x, t, out_dtype=jnp.float32,
+                                             layer=None if ly is None
+                                             else jnp.int32(ly)))
+        monkeypatch.setattr(Q, "_on_gpu", lambda: True)
+        rel = np.abs(got - want).max() / np.abs(want).max()
+        assert rel < 2 ** -7, rel
 
-    shapes = {
-        "7b": dict(h=4096, i=11008, qkv=12288, v=32000),
-        "13b": dict(h=5120, i=13824, qkv=15360, v=32000),
-        "tinyllama": dict(h=2048, i=5632, qkv=2560, v=32000),
-        "llama3-8b": dict(h=4096, i=14336, qkv=6144, v=128256),
-        "qwen2-7b": dict(h=3584, i=18944, qkv=4608, v=152064),
-    }
-    for mode in ("int8", "int4"):
-        for name, s in shapes.items():
-            mats = [  # (m, n, k) decode + prefill-chunk shapes
-                (8, s["qkv"], s["h"]),      # wqkv
-                (8, s["h"], s["h"]),        # wo (approx: q_size ~ h)
-                (8, 2 * s["i"], s["h"]),    # gate_up
-                (8, s["h"], s["i"]),        # down  <- the 13B cliff
-                (8, s["v"], s["h"]),        # lm_head
-                (512, s["h"], s["i"]),      # prefill-chunk down
-                (512, s["v"], s["h"]),      # prefill-chunk lm head
-            ]
-            for m, n, k in mats:
-                w = np.zeros((k, n), np.float32)
-                t = quantize_tensor(jnp.asarray(w), mode)
-                plan = _plan_blocks(m, n, k, t)
-                assert plan is not None, (mode, name, m, n, k)
-                bm, bn, bk = plan
-                if mode == "int4":   # int8 masks a ragged last K block
-                    assert bk == k or k % bk == 0, (mode, name, plan)
+
+def test_int4_kernel_routing(monkeypatch):
+    """On the GPU, int4 matmuls of up to INT4_KERNEL_MAX_ROWS rows (decode)
+    take the kernel; prefill-sized row counts, int8 weights, shapes the
+    kernel does not tile, and the CPU take the plain path."""
+    from llm_inference_engine.ops import quant as Q
+    t4 = quantize_tensor(jnp.zeros((256, 256)), "int4", 128)
+    t8 = quantize_tensor(jnp.zeros((256, 256)), "int8", 128)
+    odd = quantize_tensor(jnp.zeros((256, 200)), "int4", 128)
+    small, big = jnp.zeros((8, 256)), jnp.zeros((2, 512, 256))
+    assert not Q._use_int4_kernel(small, t4)            # CPU backend
+    monkeypatch.setattr(Q, "_on_gpu", lambda: True)
+    assert Q._use_int4_kernel(small, t4)
+    assert not Q._use_int4_kernel(big, t4)
+    assert not Q._use_int4_kernel(small, t8)
+    assert not Q._use_int4_kernel(small, odd)

@@ -10,8 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.ops.rope import (
-    apply_rope, apply_rope_xla, split_qkv_rope, split_qkv_rope_xla)
+from llm_inference_engine.ops.rope import apply_rope, split_qkv_rope
 
 
 def np_rope(x, positions, theta):
@@ -30,21 +29,25 @@ def np_rope(x, positions, theta):
 def test_apply_rope_matches_numpy(rng, T, H, D, offset):
     x = rng.normal(size=(T, H, D)).astype(np.float32)
     pos = np.arange(T, dtype=np.int32) + offset
-    got = np.asarray(apply_rope(jnp.asarray(x), jnp.asarray(pos),
-                                kernels="pallas"))
+    got = np.asarray(apply_rope(jnp.asarray(x), jnp.asarray(pos)))
     want = np_rope(x, pos, 10000.0)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
-def test_split_qkv_rope_matches_xla(rng):
+def test_split_qkv_rope_matches_numpy(rng):
+    """Group-major packed qkv [T, K*(G+2)*D]: per kv group, G query heads
+    then k then v; q and k rotated at their positions, v untouched."""
     T, H, K, D = 13, 8, 2, 64
-    qkv = jnp.asarray(rng.normal(size=(T, (H + 2 * K) * D)).astype(np.float32))
-    pos = jnp.arange(T, dtype=jnp.int32) + 5
-    q1, k1, v1 = split_qkv_rope(qkv, pos, H, K, D, kernels="pallas")
-    q2, k2, v2 = split_qkv_rope_xla(qkv, pos, H, K, D)
-    np.testing.assert_allclose(np.asarray(q1), np.asarray(q2), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(k1), np.asarray(k2), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), atol=1e-6)
+    G = H // K
+    x = rng.normal(size=(T, (H + 2 * K) * D)).astype(np.float32)
+    pos = np.arange(T, dtype=np.int32) + 5
+    q1, k1, v1 = split_qkv_rope(jnp.asarray(x), jnp.asarray(pos), H, K, D)
+    z = x.reshape(T, K, G + 2, D)
+    want_q = np_rope(z[:, :, :G].reshape(T, H, D), pos, 10000.0)
+    want_k = np_rope(z[:, :, G], pos, 10000.0)
+    np.testing.assert_allclose(np.asarray(q1), want_q, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(k1), want_k, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(v1), z[:, :, G + 1], atol=0)
 
 
 def test_rope_decode_step_matches_prefill(rng):
@@ -54,10 +57,10 @@ def test_rope_decode_step_matches_prefill(rng):
     H, D, T = 4, 64, 12
     x = rng.normal(size=(T, H, D)).astype(np.float32)
     pos = np.arange(T, dtype=np.int32)
-    full = np.asarray(apply_rope_xla(jnp.asarray(x), jnp.asarray(pos)))
+    full = np.asarray(apply_rope(jnp.asarray(x), jnp.asarray(pos)))
     for p in (0, 5, 11):
-        one = np.asarray(apply_rope_xla(jnp.asarray(x[p:p + 1]),
-                                        jnp.asarray(pos[p:p + 1])))
+        one = np.asarray(apply_rope(jnp.asarray(x[p:p + 1]),
+                                    jnp.asarray(pos[p:p + 1])))
         np.testing.assert_allclose(one[0], full[p], atol=1e-6)
 
 
@@ -65,7 +68,7 @@ def test_ntk_scaling_config_and_resolution():
     """NTK rope scaling (reference plumbed use_dynamic_ntk config->kernel
     with a placeholder kernel side, model_utils.h:41): HF dict parsing and
     the theta fold at engine context length."""
-    from llm_inference_engine_tpu.config import (
+    from llm_inference_engine.config import (
         ModelConfig, NTKScaling, resolve_rope_scaling)
     cfg = ModelConfig.from_dict({
         "hidden_size": 256, "num_attention_heads": 4,
@@ -93,11 +96,11 @@ def test_ntk_scaling_config_and_resolution():
 def test_ntk_engine_equals_manual_theta():
     """An NTK-configured engine decodes exactly like one built with the
     folded theta set by hand (and differently from the unscaled one)."""
-    from llm_inference_engine_tpu.config import (
+    from llm_inference_engine.config import (
         EngineConfig, NTKScaling, SamplingParams, get_config,
         resolve_rope_scaling)
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
 
     base = get_config("debug")
     ntk = base.replace(rope_scaling=NTKScaling(
@@ -107,8 +110,7 @@ def test_ntk_engine_equals_manual_theta():
 
     def run(cfg):
         eng = InferenceEngine(cfg, EngineConfig(max_batch_size=1,
-                                                max_seq_len=64,
-                                                kernels="xla"),
+                                                max_seq_len=64),
                               init_dummy_params(base, seed=0))
         toks = eng.generate([prompt], sp, eos_token_id=None).token_ids[0]
         eng.reset()

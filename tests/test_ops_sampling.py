@@ -8,7 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from llm_inference_engine_tpu.ops.sampling import (
+from llm_inference_engine.ops.sampling import (
     greedy_sample, sample_top_k, top_k_logits)
 
 
@@ -58,7 +58,7 @@ def test_temperature_zero_is_greedy(rng):
 
 
 def test_apply_penalties_neutral_is_identity(rng):
-    from llm_inference_engine_tpu.ops.sampling import apply_penalties
+    from llm_inference_engine.ops.sampling import apply_penalties
     B, V = 3, 50
     logits = jnp.asarray(rng.standard_normal((B, V)), jnp.float32)
     cc = jnp.asarray(rng.integers(0, 4, size=(B, V)), jnp.int32)
@@ -69,7 +69,7 @@ def test_apply_penalties_neutral_is_identity(rng):
 
 
 def test_apply_penalties_math(rng):
-    from llm_inference_engine_tpu.ops.sampling import apply_penalties
+    from llm_inference_engine.ops.sampling import apply_penalties
     logits = jnp.asarray([[2.0, -2.0, 1.0, 0.5]], jnp.float32)
     cc = jnp.asarray([[1, 1, 0, 0]], jnp.int32)    # seen in context
     cg = jnp.asarray([[1, 0, 2, 0]], jnp.int32)    # generated counts
@@ -84,7 +84,7 @@ def test_apply_penalties_math(rng):
 
 
 def test_min_p_filters_tail(rng):
-    from llm_inference_engine_tpu.ops.sampling import sample_tokens
+    from llm_inference_engine.ops.sampling import sample_tokens
     # two strong candidates, a weak tail; min_p=0.5 restricts the draw to
     # the two strong ones at any key
     logits = jnp.asarray([[5.0, 5.0] + [0.0] * 30], jnp.float32)
@@ -98,12 +98,12 @@ def test_min_p_filters_tail(rng):
 
 
 def test_engine_counts_and_repetition_penalty():
-    from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
     cfg = get_config("debug")
     eng = InferenceEngine(
-        cfg, EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla"),
+        cfg, EngineConfig(max_batch_size=2, max_seq_len=64),
         init_dummy_params(cfg, seed=0))
     prompt = [5, 7, 5]
     r = eng.generate([prompt], SamplingParams(greedy=True, max_new_tokens=6),
@@ -133,7 +133,7 @@ def test_engine_counts_and_repetition_penalty():
 
 
 def test_token_logprobs_math(rng):
-    from llm_inference_engine_tpu.ops.sampling import token_logprobs
+    from llm_inference_engine.ops.sampling import token_logprobs
     logits = jnp.asarray(rng.standard_normal((3, 20)), jnp.float32)
     ids = jnp.asarray([4, 0, 19], jnp.int32)
     got = np.asarray(token_logprobs(logits, ids))
@@ -145,17 +145,16 @@ def test_token_logprobs_math(rng):
 def test_generate_and_scheduler_logprobs_consistent():
     """Greedy logprobs from generate() and from the continuous-batching
     scheduler agree for the same prompt (same penalized distribution)."""
-    from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
     cfg = get_config("debug")
 
     def mk():
         return InferenceEngine(
-            cfg, EngineConfig(max_batch_size=1, max_seq_len=64,
-                              kernels="xla"),
+            cfg, EngineConfig(max_batch_size=1, max_seq_len=64),
             init_dummy_params(cfg, seed=0))
     sp = SamplingParams(greedy=True, max_new_tokens=5)
     r = mk().generate([[1, 2, 3]], sp, eos_token_id=None)

@@ -1,9 +1,8 @@
 """Paged KV cache tests (ops/paged_kv.py).
 
 Goldens: a dense slot cache scattered into randomized page assignments.
-The Pallas write kernel and the table-indirected attention index maps run
-in interpret mode (the same discipline as test_stacked_paths.py); the XLA
-scatter/gather paths are compared against the same dense reference.
+The scatter write and the table-indirected attention are compared against
+the same dense reference.
 """
 
 import numpy as np
@@ -12,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from llm_inference_engine_tpu.ops.attention import attention, attention_xla
-from llm_inference_engine_tpu.ops import paged_kv as PK
+from llm_inference_engine.ops.attention import attention, attention_ref
+from llm_inference_engine.ops import paged_kv as PK
 
 L, PAGE, K, D = 2, 16, 8, 128
 B, MAXP = 3, 4
@@ -42,8 +41,7 @@ def _dense_of(cache):
     return kd, vd   # [L, B, S, Kst, D]
 
 
-@pytest.mark.parametrize("path", ["xla", "pallas"])
-def test_paged_write_matches_dense(rng, path):
+def test_paged_write_matches_dense(rng):
     cache = _mk_cache(rng)
     # dense reference cache
     ref_k = np.zeros((L, B, S, K, D), np.float32)
@@ -63,8 +61,7 @@ def test_paged_write_matches_dense(rng, path):
             nv = rng.standard_normal((B, T, K, D)).astype(np.float32)
             cache = PK.paged_update_at_layer(
                 cache, jnp.int32(l), jnp.asarray(nk), jnp.asarray(nv),
-                jnp.asarray(starts), jnp.asarray(nlen),
-                kernels=path)
+                jnp.asarray(starts), jnp.asarray(nlen))
             for b in range(B):
                 n = int(nlen[b])
                 s0 = int(starts[b])
@@ -76,7 +73,7 @@ def test_paged_write_matches_dense(rng, path):
     for b in range(B):
         n = lengths[b]
         np.testing.assert_allclose(np.asarray(kd)[:, b, :n], ref_k[:, b, :n],
-                                   err_msg=f"k b={b} path={path}")
+                                   err_msg=f"k b={b}")
         np.testing.assert_allclose(np.asarray(vd)[:, b, :n], ref_v[:, b, :n])
 
 
@@ -110,15 +107,14 @@ def test_paged_prefill_attention_matches_dense(rng):
 
     for l in range(L):
         got = attention(jnp.asarray(q), cache.k, cache.v, q_start, kv_len,
-                        kernels="pallas", block_q=16, block_kv=PAGE,
                         layer=jnp.int32(l), table=cache.block_table)
-        want = attention_xla(jnp.asarray(q), jnp.asarray(dense_k[l]),
+        want = attention_ref(jnp.asarray(q), jnp.asarray(dense_k[l]),
                              jnp.asarray(dense_v[l]), q_start, kv_len)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=2e-5, atol=2e-5, err_msg=f"l={l}")
 
 
-def test_paged_decode_mxu_matches_dense(rng):
+def test_paged_decode_matches_dense(rng):
     cache = _mk_cache(rng)
     lengths = np.array([33, 64, 1], np.int32)
     cache, dense_k, dense_v = _fill_cache(rng, cache, lengths)
@@ -129,9 +125,9 @@ def test_paged_decode_mxu_matches_dense(rng):
 
     for l in range(L):
         got = attention(jnp.asarray(q), cache.k, cache.v, q_start, kv_len,
-                        kernels="pallas", block_kv=PAGE,
-                        layer=jnp.int32(l), table=cache.block_table)
-        want = attention_xla(jnp.asarray(q), jnp.asarray(dense_k[l]),
+                        layer=jnp.int32(l), table=cache.block_table,
+                        kv_hi=S)
+        want = attention_ref(jnp.asarray(q), jnp.asarray(dense_k[l]),
                              jnp.asarray(dense_v[l]), q_start, kv_len)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=2e-5, atol=2e-5, err_msg=f"l={l}")
@@ -144,10 +140,9 @@ def test_paged_xla_fallback_matches_dense(rng):
     q = rng.standard_normal((B, 4, K, D)).astype(np.float32)
     q_start = jnp.asarray(lengths - 4)
     kv_len = jnp.asarray(lengths)
-    got = attention(jnp.asarray(q), cache.k, cache.v, q_start, kv_len,
-                    kernels="xla", layer=jnp.int32(1),
+    got = attention(jnp.asarray(q), cache.k, cache.v, q_start, kv_len, layer=jnp.int32(1),
                     table=cache.block_table)
-    want = attention_xla(jnp.asarray(q), jnp.asarray(dense_k[1]),
+    want = attention_ref(jnp.asarray(q), jnp.asarray(dense_k[1]),
                          jnp.asarray(dense_v[1]), q_start, kv_len)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
@@ -171,18 +166,18 @@ def test_allocator():
 # ---------------------------------------------------------------------------
 
 def _engine(layout, **kw):
-    from llm_inference_engine_tpu.config import EngineConfig, get_config
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.config import EngineConfig, get_config
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
     cfg = get_config("debug")
-    eng = EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla",
+    eng = EngineConfig(max_batch_size=2, max_seq_len=64,
                        max_prefill_len=8, kv_layout=layout, page_size=16,
                        **kw)
     return InferenceEngine(cfg, eng, init_dummy_params(cfg, seed=0))
 
 
 def test_paged_engine_generate_matches_slot():
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     sp = SamplingParams(greedy=True, max_new_tokens=10)
     prompts = [list(range(1, 20)), [9, 8, 7]]     # chunked (C=8) + short
     slot = _engine("slot").generate(prompts, sp, eos_token_id=None)
@@ -199,7 +194,7 @@ def test_paged_engine_generate_matches_slot():
 
 
 def test_paged_engine_streaming_decode_matches_slot():
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     sp = SamplingParams(greedy=True, max_new_tokens=8)
     cb_tokens = []
     slot = _engine("slot").generate(
@@ -214,7 +209,7 @@ def test_paged_engine_streaming_decode_matches_slot():
 
 def test_paged_pool_exhaustion_raises():
     eng = _engine("paged", num_pages=3)          # page 0 reserved -> 2 usable
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     with pytest.raises(MemoryError):
         eng.generate([list(range(1, 40))],       # 39 tokens -> 3+ pages
                      SamplingParams(greedy=True, max_new_tokens=4),
@@ -226,14 +221,14 @@ def test_paged_pool_exhaustion_raises():
 # ---------------------------------------------------------------------------
 
 def _sched(layout, **kw):
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
     return ContinuousBatchingScheduler(_engine(layout, **kw),
                                        eos_token_id=None)
 
 
 def test_paged_scheduler_matches_slot_under_load():
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     sp = SamplingParams(greedy=True, max_new_tokens=7)
     prompts = [[1 + i, 2 + i, 3 + i, 4 + i] for i in range(5)] \
         + [list(range(10, 30))]                   # + one chunked prompt
@@ -252,7 +247,7 @@ def test_paged_preemption_recompute_parity():
     """A pool too small for both requests' full lengths forces recompute
     preemption; outputs still match the slot engine exactly and the
     preempted request reports it."""
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     sp = SamplingParams(greedy=True, max_new_tokens=20)
     prompts = [[1, 2, 3, 4, 5, 6, 7, 8], [9, 8, 7, 6, 5, 4, 3, 2]]
 
@@ -272,7 +267,7 @@ def test_paged_preemption_recompute_parity():
 
 
 def test_paged_admission_waits_for_pages():
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     sp = SamplingParams(greedy=True, max_new_tokens=4)
     paged = _sched("paged", num_pages=3)          # 2 usable pages
     a = paged.submit(list(range(1, 17)), sp)      # 16 tokens -> 2 pages
@@ -285,7 +280,7 @@ def test_paged_admission_waits_for_pages():
 
 
 def test_paged_single_oversized_request_finishes_capacity():
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     paged = _sched("paged", num_pages=2)          # 1 usable page (16 tok)
     r = paged.submit([1, 2, 3],
                      SamplingParams(greedy=True, max_new_tokens=40))
@@ -311,16 +306,15 @@ def test_paged_embedded_int8_write_and_attend(rng):
         cache = PK.paged_update_at_layer(
             cache, jnp.int32(0), jnp.asarray(nk), jnp.asarray(nv),
             jnp.asarray([off, off], jnp.int32),
-            jnp.asarray([PAGE, min(PAGE, n)], jnp.int32), kernels="xla")
+            jnp.asarray([PAGE, min(PAGE, n)], jnp.int32))
 
     q = rng.standard_normal((2, 1, K, D)).astype(np.float32)
     kv_len = jnp.asarray([2 * PAGE, n], jnp.int32)
-    got = attention(jnp.asarray(q), cache.k, cache.v, kv_len - 1, kv_len,
-                    kernels="xla", layer=jnp.int32(0),
+    got = attention(jnp.asarray(q), cache.k, cache.v, kv_len - 1, kv_len, layer=jnp.int32(0),
                     table=cache.block_table, embedded_kv=True)
     dense_k = np.concatenate([nk, nk], axis=1)[:, :2 * PAGE]
     dense_v = np.concatenate([nv, nv], axis=1)
-    want = attention_xla(jnp.asarray(q), jnp.asarray(dense_k),
+    want = attention_ref(jnp.asarray(q), jnp.asarray(dense_k),
                          jnp.asarray(dense_v), kv_len - 1, kv_len)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=0.05, atol=0.05)
@@ -329,7 +323,7 @@ def test_paged_embedded_int8_write_and_attend(rng):
 def test_paged_int8_kv_engine_generates():
     """End-to-end paged + embedded-int8 KV engine smoke (vocab-sane greedy
     output, page accounting)."""
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     eng = _engine("paged", kv_cache_dtype_name="int8")
     r = eng.generate([[1, 2, 3, 4, 5]],
                      SamplingParams(greedy=True, max_new_tokens=6),
@@ -339,7 +333,7 @@ def test_paged_int8_kv_engine_generates():
 
 
 def test_paged_multi_round_append_rejected():
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     eng = _engine("paged")
     eng.generate([[1, 2, 3]], SamplingParams(greedy=True, max_new_tokens=2),
                  eos_token_id=None)
@@ -351,13 +345,13 @@ def test_paged_router_and_chat_session():
     """DP-router serving over paged per-host schedulers, and multi-round
     chat on a paged engine (full-context re-prefill each round matches the
     slot engine's KV-append rounds token for token)."""
-    from llm_inference_engine_tpu.cli import _IdTokenizer
-    from llm_inference_engine_tpu.config import SamplingParams
-    from llm_inference_engine_tpu.runtime.multihost_scheduler import (
+    from llm_inference_engine.cli import _IdTokenizer
+    from llm_inference_engine.config import SamplingParams
+    from llm_inference_engine.runtime.multihost_scheduler import (
         RequestRouter)
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
-    from llm_inference_engine_tpu.runtime.session import ChatSession
+    from llm_inference_engine.runtime.session import ChatSession
 
     sp = SamplingParams(greedy=True, max_new_tokens=5)
     router = RequestRouter([
@@ -382,7 +376,7 @@ def test_paged_router_and_chat_session():
 def test_paged_oversized_prompt_rejected_no_starvation():
     """A prompt that can never fit the pool is rejected at submit instead
     of head-of-line blocking the queue forever (review finding)."""
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     sched = _sched("paged", num_pages=4)          # 3 pages = 48 tokens
     sp = SamplingParams(greedy=True, max_new_tokens=3)
     big = sched.submit(list(range(1, 50)), sp)    # 49 tokens -> 4 pages
@@ -396,7 +390,7 @@ def test_preemption_preserves_generation_counts():
     """Recompute preemption must not reset the presence/frequency penalty
     state: a preempted run equals an unconstrained run with the same
     penalties (review finding)."""
-    from llm_inference_engine_tpu.config import SamplingParams
+    from llm_inference_engine.config import SamplingParams
     sp = SamplingParams(greedy=True, max_new_tokens=20,
                         frequency_penalty=0.7, presence_penalty=0.3,
                         repetition_penalty=1.2)
@@ -412,15 +406,13 @@ def test_preemption_preserves_generation_counts():
 
 
 def test_paged_separate_scale_attention_rejected(rng):
-    from llm_inference_engine_tpu.ops.attention import _attention_pallas
     cache = _mk_cache(rng)
     q = jnp.asarray(rng.standard_normal((B, 4, K, D)), jnp.float32)
     kl = jnp.asarray([8, 8, 8], jnp.int32)
     sc = jnp.ones((L, cache.num_pages, PAGE, K), jnp.float32)
     with pytest.raises(NotImplementedError, match="embedded"):
-        _attention_pallas(q, cache.k, cache.v, kl - 4, kl, True, 1.0,
-                          16, PAGE, True, k_scale=sc, v_scale=sc,
-                          layer=jnp.int32(0), table=cache.block_table)
+        attention(q, cache.k, cache.v, kl - 4, kl, k_scale=sc, v_scale=sc,
+                  layer=jnp.int32(0), table=cache.block_table)
 
 
 def test_paged_session_carries_pages_across_rounds():
@@ -429,9 +421,9 @@ def test_paged_session_carries_pages_across_rounds():
     (session._paged_carry_history), only the partial tail page + the new
     turn re-prefill — and the answers still match the slot layout
     (VERDICT r2 ask #6)."""
-    from llm_inference_engine_tpu.cli import _IdTokenizer
-    from llm_inference_engine_tpu.config import SamplingParams
-    from llm_inference_engine_tpu.runtime.session import ChatSession
+    from llm_inference_engine.cli import _IdTokenizer
+    from llm_inference_engine.config import SamplingParams
+    from llm_inference_engine.runtime.session import ChatSession
 
     tok = _IdTokenizer(256)
     sp = SamplingParams(greedy=True, max_new_tokens=6)

@@ -13,17 +13,17 @@ import jax
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import (EngineConfig, SamplingParams,
+from llm_inference_engine.config import (EngineConfig, SamplingParams,
                                              get_config)
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.parallel import make_mesh
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.parallel import make_mesh
+from llm_inference_engine.runtime.engine import InferenceEngine
 
 CFG = get_config("debug")          # 4 heads, 2 kv heads, vocab 256
 
 
 def _engine(mesh=None, B=4, **kw):
-    eng = EngineConfig(max_batch_size=B, max_seq_len=64, kernels="xla",
+    eng = EngineConfig(max_batch_size=B, max_seq_len=64,
                        max_prefill_len=8, kv_layout="paged", page_size=16,
                        **kw)
     return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0),
@@ -58,7 +58,7 @@ def test_paged_mesh_scheduler_round_trip():
     """Continuous batching over a paged dp x tp mesh engine: admissions,
     chunked prefill, decode, completion — tokens match the single-device
     paged scheduler."""
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
     sp = SamplingParams(greedy=True, max_new_tokens=6)
 
@@ -78,7 +78,7 @@ def test_paged_mesh_preemption_recompute():
     """Pool pressure under a mesh: preempted requests recompute and finish
     with the same tokens as an unpressured run (divergent-replica safety:
     released pages get rewritten by other slots on the same data group)."""
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
     sp = SamplingParams(greedy=True, max_new_tokens=8)
     long_prompts = [list(range(1, 17)), list(range(20, 36)),
@@ -94,7 +94,7 @@ def test_paged_mesh_preemption_recompute():
 
 
 def _run_sched(engine, prompts, sp):
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
     sched = ContinuousBatchingScheduler(engine, eos_token_id=None)
     reqs = [sched.submit(p, sp) for p in prompts]

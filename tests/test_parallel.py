@@ -10,14 +10,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params, quantize_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
-from llm_inference_engine_tpu.parallel import make_mesh, sharding
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params, quantize_params
+from llm_inference_engine.ops import kv_cache as kvc
+from llm_inference_engine.parallel import make_mesh, sharding
 
 CFG = get_config("debug")           # 4 heads, 2 kv heads, vocab 256
-ENG = EngineConfig(max_batch_size=4, max_seq_len=32, kernels="xla")
+ENG = EngineConfig(max_batch_size=4, max_seq_len=32)
 
 
 def _reference_logits(params, ids, lens):
@@ -107,7 +107,7 @@ def test_sharded_quantized_forward(rng):
 
 
 def test_mesh_validation():
-    from llm_inference_engine_tpu.parallel.mesh import validate_mesh
+    from llm_inference_engine.parallel.mesh import validate_mesh
     mesh = make_mesh(dp=1, tp=4, devices=jax.devices("cpu"))
     with pytest.raises(ValueError, match="num_kv_heads"):
         validate_mesh(CFG, ENG, mesh)  # 2 kv heads % 4 != 0
@@ -115,14 +115,14 @@ def test_mesh_validation():
 
 def test_multihost_mesh_single_process():
     """make_multihost_mesh on one host behaves like make_mesh."""
-    from llm_inference_engine_tpu.parallel import make_multihost_mesh
-    from llm_inference_engine_tpu.utils import cpu_devices
+    from llm_inference_engine.parallel import make_multihost_mesh
+    from llm_inference_engine.utils import cpu_devices
     mesh = make_multihost_mesh(dp=2, tp=4, devices=cpu_devices(8))
     assert mesh.shape["data"] == 2 and mesh.shape["model"] == 4
 
 
 def test_initialize_multihost_noop():
-    from llm_inference_engine_tpu.parallel import initialize_multihost
+    from llm_inference_engine.parallel import initialize_multihost
     initialize_multihost()  # single process: must be a clean no-op
 
 

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, ModelConfig
-from llm_inference_engine_tpu.models import llama as M
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.ops import kv_cache as kvc
-from llm_inference_engine_tpu.parallel import pipeline as PP
-from llm_inference_engine_tpu.utils import cpu_devices
+from llm_inference_engine.config import EngineConfig, ModelConfig
+from llm_inference_engine.models import llama as M
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.ops import kv_cache as kvc
+from llm_inference_engine.parallel import pipeline as PP
+from llm_inference_engine.utils import cpu_devices
 
 CFG = ModelConfig(name="pp-test", vocab_size=128, hidden_size=64,
                   intermediate_size=128, num_layers=4, num_heads=8,
@@ -29,7 +29,7 @@ def test_pp_forward_matches_single_device(pp, dp, tp):
     devices = cpu_devices(ndev)
     mesh = PP.make_pp_mesh(pp=pp, dp=dp, tp=tp, devices=devices)
     B = max(2, dp)
-    eng = EngineConfig(max_batch_size=B, max_seq_len=32, kernels="xla")
+    eng = EngineConfig(max_batch_size=B, max_seq_len=32)
     params = init_dummy_params(CFG, seed=0, scale=0.3)
 
     rng = np.random.default_rng(0)

@@ -10,11 +10,11 @@ match/LRU semantics hold.
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.prefix_cache import PrefixStore
-from llm_inference_engine_tpu.runtime.scheduler import ContinuousBatchingScheduler
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.prefix_cache import PrefixStore
+from llm_inference_engine.runtime.scheduler import ContinuousBatchingScheduler
 
 CFG = get_config("debug")
 PREFIX = list(range(5, 21))          # 16 tokens == one chunk at C=16
@@ -22,7 +22,7 @@ TAILS = [[40, 41], [50, 51, 52, 53], [60]]
 
 
 def make_engine(batch=2, seq=96, **kw):
-    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq, kernels="xla",
+    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq,
                        max_prefill_len=16, **kw)
     return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
 
@@ -150,7 +150,7 @@ def test_prefix_reuse_preserves_repetition_penalty():
 # ---------------------------------------------------------------------------
 
 def _paged_engine(**kw):
-    eng = EngineConfig(max_batch_size=2, max_seq_len=96, kernels="xla",
+    eng = EngineConfig(max_batch_size=2, max_seq_len=96,
                        max_prefill_len=16, kv_layout="paged", page_size=16,
                        **kw)
     return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
@@ -225,7 +225,7 @@ def test_paged_prefix_eviction_while_in_use():
 
 
 def test_paged_prefix_register_validations():
-    from llm_inference_engine_tpu.runtime.prefix_cache import (
+    from llm_inference_engine.runtime.prefix_cache import (
         PagedPrefixStore)
     eng = _paged_engine()
     store = PagedPrefixStore(eng, max_tokens=64)
@@ -326,7 +326,7 @@ def test_auto_prefix_mid_prefill_finish_not_poisoned():
     written page under a full-page key and poison later matches
     (ADVICE r1 high: warm output diverged from a cold engine)."""
     sp = SamplingParams(greedy=True, max_new_tokens=4)
-    eng = EngineConfig(max_batch_size=2, max_seq_len=96, kernels="xla",
+    eng = EngineConfig(max_batch_size=2, max_seq_len=96,
                        max_prefill_len=8, kv_layout="paged", page_size=16)
     sched = ContinuousBatchingScheduler(
         InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0)),

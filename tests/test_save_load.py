@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.models.weights import (
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.models.weights import (
     init_dummy_params, init_dummy_quantized_params, load_saved_params,
     quantize_params, save_params)
-from llm_inference_engine_tpu.ops.quant import QuantizedTensor
+from llm_inference_engine.ops.quant import QuantizedTensor
 
 
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
@@ -44,8 +44,8 @@ def test_round_trip_bitwise(tmp_path, quant):
 def test_engine_from_saved_npz(tmp_path):
     """create_engine on a .npz path must produce identical logits to the
     engine built from the in-memory params."""
-    from llm_inference_engine_tpu.models.registry import create_engine
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
+    from llm_inference_engine.models.registry import create_engine
+    from llm_inference_engine.runtime.engine import InferenceEngine
 
     cfg = get_config("debug")
     eng = EngineConfig(max_batch_size=1, max_seq_len=32, quant_mode="int8")

@@ -8,16 +8,16 @@ load, mixed sampling params, completion reasons.
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.scheduler import ContinuousBatchingScheduler
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.scheduler import ContinuousBatchingScheduler
 
 CFG = get_config("debug")
 
 
 def make_engine(batch=2, seq=48):
-    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq, kernels="xla")
+    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq)
     return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
 
 
@@ -107,7 +107,7 @@ def test_chunked_admission_does_not_stall_decodes():
     """A long prompt admits chunk-by-chunk in MIXED steps: the already-
     decoding slot must gain one token per step throughout (no head-of-line
     blocking), and the result must equal running the same request alone."""
-    eng = EngineConfig(max_batch_size=2, max_seq_len=96, kernels="xla",
+    eng = EngineConfig(max_batch_size=2, max_seq_len=96,
                        max_prefill_len=8)
     engine = InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=0))
     sched = ContinuousBatchingScheduler(engine, eos_token_id=None)

@@ -14,13 +14,13 @@ import threading
 
 import pytest
 
-from llm_inference_engine_tpu.cli import _IdTokenizer
-from llm_inference_engine_tpu.config import EngineConfig, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.chat_template import get_chat_template
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.scheduler import ContinuousBatchingScheduler
-from llm_inference_engine_tpu.server import make_server
+from llm_inference_engine.cli import _IdTokenizer
+from llm_inference_engine.config import EngineConfig, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.chat_template import get_chat_template
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.scheduler import ContinuousBatchingScheduler
+from llm_inference_engine.server import make_server
 
 CFG = get_config("debug")
 
@@ -28,7 +28,7 @@ CFG = get_config("debug")
 @pytest.fixture(scope="module")
 def server():
     eng = InferenceEngine(
-        CFG, EngineConfig(max_batch_size=2, max_seq_len=64, kernels="xla"),
+        CFG, EngineConfig(max_batch_size=2, max_seq_len=64),
         init_dummy_params(CFG, seed=0))
     sched = ContinuousBatchingScheduler(eng, eos_token_id=None)
     httpd, llm = make_server(sched, _IdTokenizer(CFG.vocab_size),
@@ -178,18 +178,18 @@ def test_stop_strings_trim_and_cancel(server):
 def test_backpressure_429():
     """A max_queue=1 server rejects the second concurrent request with
     429 while the first is still streaming."""
-    from llm_inference_engine_tpu.cli import _IdTokenizer
-    from llm_inference_engine_tpu.config import EngineConfig
-    from llm_inference_engine_tpu.models.weights import init_dummy_params
-    from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-    from llm_inference_engine_tpu.runtime.scheduler import (
+    from llm_inference_engine.cli import _IdTokenizer
+    from llm_inference_engine.config import EngineConfig
+    from llm_inference_engine.models.weights import init_dummy_params
+    from llm_inference_engine.runtime.engine import InferenceEngine
+    from llm_inference_engine.runtime.scheduler import (
         ContinuousBatchingScheduler)
-    from llm_inference_engine_tpu.runtime.chat_template import (
+    from llm_inference_engine.runtime.chat_template import (
         get_chat_template)
-    from llm_inference_engine_tpu.server import make_server
+    from llm_inference_engine.server import make_server
 
     eng = InferenceEngine(
-        CFG, EngineConfig(max_batch_size=1, max_seq_len=64, kernels="xla"),
+        CFG, EngineConfig(max_batch_size=1, max_seq_len=64),
         init_dummy_params(CFG, seed=0))
     sched = ContinuousBatchingScheduler(eng, eos_token_id=None)
     httpd, llm = make_server(sched, _IdTokenizer(CFG.vocab_size),
@@ -222,8 +222,7 @@ def test_backpressure_429():
 
 def _standalone_server(batch=1, max_queue=0):
     eng = InferenceEngine(
-        CFG, EngineConfig(max_batch_size=batch, max_seq_len=64,
-                          kernels="xla"),
+        CFG, EngineConfig(max_batch_size=batch, max_seq_len=64),
         init_dummy_params(CFG, seed=0))
     sched = ContinuousBatchingScheduler(eng, eos_token_id=None)
     httpd, llm = make_server(sched, _IdTokenizer(CFG.vocab_size),
@@ -333,13 +332,12 @@ def test_speculative_server_sampled_and_penalized_ok():
     (VERDICT r2 ask #4); penalized ones now run too, under the
     frozen-counts round semantics (VERDICT r3 #8) — both streaming and
     non-streaming — and the engine thread keeps serving after them."""
-    from llm_inference_engine_tpu.runtime.speculative_scheduler import (
+    from llm_inference_engine.runtime.speculative_scheduler import (
         SpeculativeScheduler)
 
     def eng():
         return InferenceEngine(
-            CFG, EngineConfig(max_batch_size=2, max_seq_len=64,
-                              kernels="xla"),
+            CFG, EngineConfig(max_batch_size=2, max_seq_len=64),
             init_dummy_params(CFG, seed=0))
     sched = SpeculativeScheduler(eng(), eng(), eos_token_id=None)
     httpd, llm = make_server(sched, _IdTokenizer(CFG.vocab_size),

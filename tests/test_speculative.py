@@ -5,10 +5,10 @@ how good the draft model is."""
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.speculative import SpeculativeDecoder
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.speculative import SpeculativeDecoder
 
 CFG = get_config("debug")
 
@@ -26,7 +26,7 @@ def _greedy(engine, prompts, n):
     (5, 0.0),    # unrelated draft: still exact output, low acceptance
 ])
 def test_greedy_spec_exact(draft_seed, min_rate):
-    eng = EngineConfig(max_batch_size=2, max_seq_len=96, kernels="xla")
+    eng = EngineConfig(max_batch_size=2, max_seq_len=96)
     t_params = init_dummy_params(CFG, seed=0, scale=0.3)
     d_params = init_dummy_params(CFG, seed=draft_seed, scale=0.3)
     target = InferenceEngine(CFG, eng, t_params)
@@ -45,7 +45,7 @@ def test_greedy_spec_exact(draft_seed, min_rate):
 
 
 def test_spec_with_eos():
-    eng = EngineConfig(max_batch_size=1, max_seq_len=96, kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=96)
     params = init_dummy_params(CFG, seed=3, scale=0.35)
     target = InferenceEngine(CFG, eng, params)
     draft = InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=4,

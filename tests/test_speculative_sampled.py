@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import (EngineConfig, SamplingParams,
+from llm_inference_engine.config import (EngineConfig, SamplingParams,
                                              get_config)
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.ops.sampling import (
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.ops.sampling import (
     processed_probs, sample_tokens, speculative_accept)
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.speculative import SpeculativeDecoder
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.speculative import SpeculativeDecoder
 
 CFG = get_config("debug")
 
@@ -166,7 +166,7 @@ def test_processed_probs_matches_sample_tokens():
 # ---------------------------------------------------------------------------
 
 def _engines(seed_t=0, seed_d=5, B=2):
-    eng = EngineConfig(max_batch_size=B, max_seq_len=96, kernels="xla")
+    eng = EngineConfig(max_batch_size=B, max_seq_len=96)
     target = InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=seed_t,
                                                          scale=0.3))
     draft = InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=seed_d,
@@ -208,11 +208,11 @@ def _ref_frozen_greedy(params, prompts, k, total, sp, B, seq=96):
     round boundaries (after the prefill token, then every k+1 tokens) —
     exactly what a full-acceptance draft==target round produces."""
     import dataclasses
-    from llm_inference_engine_tpu.models import llama as M
-    from llm_inference_engine_tpu.ops import kv_cache as kvc
-    from llm_inference_engine_tpu.ops.sampling import apply_penalties
+    from llm_inference_engine.models import llama as M
+    from llm_inference_engine.ops import kv_cache as kvc
+    from llm_inference_engine.ops.sampling import apply_penalties
 
-    eng = EngineConfig(max_batch_size=B, max_seq_len=seq, kernels="xla")
+    eng = EngineConfig(max_batch_size=B, max_seq_len=seq)
     V = CFG.vocab_size
     T = max(len(p) for p in prompts)
     ids = np.zeros((B, T), np.int32)
@@ -274,7 +274,7 @@ def test_spec_penalties_frozen_semantics_greedy():
     prompts = [[1, 17, 93, 5], [1, 9, 41]]
     want = _ref_frozen_greedy(params, prompts, k, total, sp, B=2)
 
-    eng = EngineConfig(max_batch_size=2, max_seq_len=96, kernels="xla")
+    eng = EngineConfig(max_batch_size=2, max_seq_len=96)
     target = InferenceEngine(CFG, eng, params)
     draft = InferenceEngine(CFG, eng, params)      # same model
     spec = SpeculativeDecoder(target, draft, num_draft=k)
@@ -290,7 +290,7 @@ def test_spec_penalties_effective_and_lossless_shape():
     speculative rounds must forbid every repeat. Then a penalized sampled
     round must run end-to-end with in-vocab output."""
     params = init_dummy_params(CFG, seed=0, scale=0.02)
-    eng = EngineConfig(max_batch_size=1, max_seq_len=96, kernels="xla")
+    eng = EngineConfig(max_batch_size=1, max_seq_len=96)
 
     def gen(sp):
         t = InferenceEngine(CFG, eng, params)
@@ -314,12 +314,11 @@ def test_spec_penalties_effective_and_lossless_shape():
 def test_scheduler_accepts_sampled_requests():
     """The server path: sampled submissions run (mixed with greedy) and
     produce tokens; greedy requests still match the plain engine."""
-    from llm_inference_engine_tpu.runtime.speculative_scheduler import (
+    from llm_inference_engine.runtime.speculative_scheduler import (
         SpeculativeScheduler)
     target, draft = _engines(B=3)
     plain = InferenceEngine(CFG, EngineConfig(max_batch_size=3,
-                                              max_seq_len=96,
-                                              kernels="xla"),
+                                              max_seq_len=96),
                             init_dummy_params(CFG, seed=0, scale=0.3))
     want = plain.generate([[1, 17, 93, 5]],
                           SamplingParams(greedy=True, max_new_tokens=10),

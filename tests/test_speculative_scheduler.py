@@ -10,18 +10,18 @@ acceptance) and a disagreeing draft (partial acceptance).
 import numpy as np
 import pytest
 
-from llm_inference_engine_tpu.config import EngineConfig, SamplingParams, get_config
-from llm_inference_engine_tpu.models.weights import init_dummy_params
-from llm_inference_engine_tpu.runtime.engine import InferenceEngine
-from llm_inference_engine_tpu.runtime.scheduler import ContinuousBatchingScheduler
-from llm_inference_engine_tpu.runtime.speculative_scheduler import (
+from llm_inference_engine.config import EngineConfig, SamplingParams, get_config
+from llm_inference_engine.models.weights import init_dummy_params
+from llm_inference_engine.runtime.engine import InferenceEngine
+from llm_inference_engine.runtime.scheduler import ContinuousBatchingScheduler
+from llm_inference_engine.runtime.speculative_scheduler import (
     SpeculativeScheduler)
 
 CFG = get_config("debug")
 
 
 def _engine(seed=0, batch=2, seq=96, prefill=8):
-    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq, kernels="xla",
+    eng = EngineConfig(max_batch_size=batch, max_seq_len=seq,
                        max_prefill_len=prefill)
     return InferenceEngine(CFG, eng, init_dummy_params(CFG, seed=seed))
 

@@ -1,9 +1,6 @@
-"""Layer-prefetch (stacked) kernel paths, run in Pallas interpret mode.
-
-These are the hot production paths on TPU: matmul kernels indexing whole
-[L, ...] quantized weights and the attention kernel indexing the stacked
-[L, B, S, K, D] cache by a traced layer id (nothing sliced in HBM). The
-CPU test suite otherwise exercises them only through the XLA fallbacks.
+"""Stacked-layer paths: the quantized matmul indexing whole [L, ...]
+weights and attention indexing the stacked [L, B, S, K, D] cache by a
+traced layer id must equal the per-layer computation.
 """
 
 import numpy as np
@@ -11,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from llm_inference_engine_tpu.ops.attention import attention, attention_xla
-from llm_inference_engine_tpu.ops.quant import (
+from llm_inference_engine.ops.attention import attention, attention_ref
+from llm_inference_engine.ops.quant import (
     QuantizedTensor, quantize_tensor, quantized_linear)
 
 
@@ -40,8 +37,8 @@ def test_stacked_quantized_linear_matches_per_layer(rng, mode, group):
     stacked = _stack_quant(ws, mode, group)
     for l in range(L):
         t = quantize_tensor(jnp.asarray(ws[l]), mode, group)
-        want = quantized_linear(x, t, kernels="pallas")
-        got = quantized_linear(x, stacked, kernels="pallas",
+        want = quantized_linear(x, t)
+        got = quantized_linear(x, stacked,
                                layer=jnp.int32(l))
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    atol=1e-3, rtol=1e-3)
@@ -57,8 +54,8 @@ def test_stacked_structured_gate_up(rng, mode):
     assert stacked.q.ndim == 4 and stacked.q.shape[1] == 2
     for l in range(L):
         t = quantize_tensor(jnp.asarray(ws[l]), mode, 128)
-        want = quantized_linear(x, t, kernels="pallas")     # [m, 2I] packed
-        got = quantized_linear(x, stacked, kernels="pallas",
+        want = quantized_linear(x, t)     # [m, 2I] packed
+        got = quantized_linear(x, stacked,
                                layer=jnp.int32(l))
         assert got.shape == (m, 2 * I)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
@@ -74,13 +71,12 @@ def test_stacked_attention_matches_per_layer(rng):
     qs = jnp.asarray(np.array([10, 63], np.int32))
     kl = qs + 1
     for l in range(L):
-        got = attention(q, kc, vc, qs, kl, kernels="pallas",
-                        layer=jnp.int32(l), block_kv=16)
-        want = attention(q, kc[l], vc[l], qs, kl, kernels="pallas",
-                         block_kv=16)
+        got = attention(q, kc, vc, qs, kl,
+                        layer=jnp.int32(l))
+        want = attention(q, kc[l], vc[l], qs, kl)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    atol=1e-5, rtol=1e-5)
-        golden = attention_xla(q, kc, vc, qs, kl, layer=jnp.int32(l))
+        golden = attention_ref(q, kc, vc, qs, kl, layer=jnp.int32(l))
         np.testing.assert_allclose(np.asarray(got), np.asarray(golden),
                                    atol=2e-4, rtol=2e-4)
 
@@ -95,11 +91,9 @@ def test_stacked_attention_int8_kv(rng):
     q = jnp.asarray(rng.normal(size=(B, 1, H, D)).astype(np.float32))
     qs = jnp.asarray(np.array([5, 31], np.int32))
     kl = qs + 1
-    got = attention(q, jnp.asarray(kc), jnp.asarray(vc), qs, kl,
-                    kernels="pallas", layer=jnp.int32(1),
-                    k_scale=jnp.asarray(sc), v_scale=jnp.asarray(sc),
-                    block_kv=16)
-    want = attention_xla(q, jnp.asarray(kc), jnp.asarray(vc), qs, kl,
+    got = attention(q, jnp.asarray(kc), jnp.asarray(vc), qs, kl, layer=jnp.int32(1),
+                    k_scale=jnp.asarray(sc), v_scale=jnp.asarray(sc))
+    want = attention_ref(q, jnp.asarray(kc), jnp.asarray(vc), qs, kl,
                          layer=jnp.int32(1), k_scale=jnp.asarray(sc),
                          v_scale=jnp.asarray(sc))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
@@ -114,8 +108,8 @@ def test_attention_kv_hi_watermark(rng):
     q = jnp.asarray(rng.normal(size=(B, 1, K, D)).astype(np.float32))
     qs = jnp.asarray(np.array([7, 30], np.int32))
     kl = qs + 1
-    full = attention(q, kc, vc, qs, kl, kernels="pallas", block_kv=16)
-    marked = attention(q, kc, vc, qs, kl, kernels="pallas", block_kv=16,
+    full = attention(q, kc, vc, qs, kl)
+    marked = attention(q, kc, vc, qs, kl,
                        kv_hi=32)
     np.testing.assert_allclose(np.asarray(marked), np.asarray(full),
                                atol=1e-6, rtol=1e-6)

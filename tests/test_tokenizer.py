@@ -8,7 +8,7 @@ import struct
 
 import pytest
 
-from llm_inference_engine_tpu.tokenizer.bpe import (
+from llm_inference_engine.tokenizer.bpe import (
     BPETokenizer, _load_flm_binary, _load_sentencepiece_model)
 
 

@@ -24,9 +24,9 @@ import struct
 
 import pytest
 
-from llm_inference_engine_tpu.tokenizer.bpe import (
+from llm_inference_engine.tokenizer.bpe import (
     BPETokenizer, _load_flm_binary, _load_sentencepiece_model)
-from llm_inference_engine_tpu.tokenizer.native import wrap_native
+from llm_inference_engine.tokenizer.native import wrap_native
 
 CORPUS = [
     "hello world",

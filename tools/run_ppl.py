@@ -7,20 +7,20 @@ Usage, once a real checkpoint + corpus exist on the machine:
         --data /path/to/wikitext-2-test.txt --quant compare
 
 prints one JSON line with fp/int8/int4 PPL and deltas; the gate passes when
-int8_delta <= 0.1 and int4_delta <= 0.5 (BASELINE.md quality row).
+int8_delta <= 0.1 and int4_delta <= 0.5.
 
-This is a thin entry point over ``llm_inference_engine_tpu.evals.ppl`` — the
+This is a thin entry point over ``llm_inference_engine.evals.ppl`` — the
 harness itself (windowed teacher-forced scoring, device-side NLL) lives
-there and is unit-tested; no checkpoint or corpus ships in this
-environment, so the committed quality evidence is the synthetic-statistics
-logits-divergence proxy (tools/quant_divergence.py, docs/quant_divergence_r04.log).
+there and is unit-tested. No checkpoint or corpus ships with the repo; the
+proxy that needs neither is the synthetic-statistics logits-divergence
+tool (tools/quant_divergence.py), not yet run on the GPU.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from llm_inference_engine_tpu.evals.ppl import main
+from llm_inference_engine.evals.ppl import main
 
 if __name__ == "__main__":
     main()
