@@ -8,10 +8,13 @@ Candidates: the repository's int4 matmul kernel (ops/quant.py, Pallas
 through Triton); JAX's library kernels for RMSNorm, decode attention and
 paged attention (jax/experimental/pallas/ops/gpu, Triton route);
 ``jax.nn.dot_product_attention(implementation="cudnn")`` for prefill; a
-minimal SwiGLU kernel written here. Times are host wall clock around
+minimal SwiGLU kernel written here. Alone, times are host wall clock around
 back-to-back dispatches ending in ``block_until_ready``, median of 5
-windows; below ~20 us per call they include dispatch. Every line names the
-card and its power limit. Needs a GPU.
+windows; below ~20 us per call they include dispatch. In the engine, each
+candidate replaces its op in the model (``swaps`` in ``in_situ``) and the
+step is timed whole; the shipped routing runs first and last, to show the
+drift between runs. Every line names the card and its power limit. Needs
+a GPU.
 """
 
 from __future__ import annotations
@@ -122,13 +125,37 @@ def library_attention(q, k_cache, v_cache, q_start, kv_len, *, causal=True,
                               (1, B, rows, K, D))[0]
     scale = sm_scale or 1.0 / math.sqrt(D)
     if T == 1:
+        # the Triton lowering takes power-of-two blocks only: the rows
+        # (a multiple of the engine's 256-row watermark) split in 256s
+        splits = rows // 256 if rows % 256 == 0 else 16
         out = decode_attention.gqa(q[:, 0], k, v, kv_seq_len=kv_len,
-                                   sm_scale=scale)
+                                   sm_scale=scale, k_splits=splits)
         return out[:, None].astype(q.dtype)
     mask = _valid_mask(q_start, kv_len, T, rows, causal, window)
     return jax.nn.dot_product_attention(
         q, k, v, mask=mask[:, None], scale=scale,
         implementation="cudnn").astype(q.dtype)
+
+
+def library_rmsnorm(x, weight, eps=1e-5):
+    """Drop-in for ops.rmsnorm.rmsnorm on [B, T, H]: JAX's library Triton
+    RMSNorm."""
+    from jax.experimental.pallas.ops.gpu import rms_norm as lib_rms
+    return lib_rms.rms_norm(x, weight, jnp.zeros_like(weight), eps=eps)
+
+
+def library_add_rmsnorm(x, residual, weight, eps=1e-5):
+    """Drop-in for ops.rmsnorm.add_residual_rmsnorm: the add in XLA, the
+    norm in the library kernel."""
+    h = (x.astype(jnp.float32) + residual.astype(jnp.float32)).astype(x.dtype)
+    return library_rmsnorm(h, weight, eps), h
+
+
+def triton_silu_and_mul(gate_up):
+    """Drop-in for ops.activations.silu_and_mul on [..., 2I]."""
+    lead = gate_up.shape[:-1]
+    out = swiglu_triton(gate_up.reshape(-1, gate_up.shape[-1]))
+    return out.reshape(*lead, out.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -296,20 +323,26 @@ def in_situ(cfg, variants, steps: int = 64):
     prompts = [rng.integers(3, cfg.vocab_size, size=512).tolist()
                for _ in range(8)]
     from llm_inference_engine.ops import attention as A
-    shipped_attention, shipped_cudnn = M.attention, A._use_cudnn
+    shipped = {n: getattr(M, n) for n in ("attention", "rmsnorm",
+                                          "add_residual_rmsnorm",
+                                          "silu_and_mul")}
+    swaps = {"library decode attention": {"attention": library_attention},
+             "library RMSNorm": {"rmsnorm": library_rmsnorm,
+                                 "add_residual_rmsnorm": library_add_rmsnorm},
+             "Triton SwiGLU": {"silu_and_mul": triton_silu_and_mul}}
+    shipped_cudnn = A._use_cudnn
     out = {}
     for name in variants:
         # "plain XLA": every op plain; "int4 kernel at every size"; the
-        # shipped routing; the shipped routing with JAX's library decode
-        # kernel (and cuDNN prefill) in place of the attention op
+        # shipped routing; the shipped routing with one op swapped for its
+        # GPU kernel candidate (``swaps``)
         Q.INT4_KERNEL_MAX_ROWS = {"plain XLA": 0,
                                   "int4 kernel at every size": 1 << 30
                                   }.get(name, 64)
         A._use_cudnn = (shipped_cudnn if name != "plain XLA"
                         else lambda q: False)
-        M.attention = (library_attention
-                       if name == "library decode attention"
-                       else shipped_attention)
+        for n, fn in dict(shipped, **swaps.get(name, {})).items():
+            setattr(M, n, fn)
         try:
             eng = InferenceEngine(cfg, EngineConfig(
                 max_batch_size=8, max_seq_len=2048, quant_mode="int4"),
@@ -351,7 +384,9 @@ def in_situ(cfg, variants, steps: int = 64):
             traceback.print_exc()
             record("engine", name, None, f"{type(e).__name__}: {e}")
     Q.INT4_KERNEL_MAX_ROWS = 64
-    A._use_cudnn, M.attention = shipped_cudnn, shipped_attention
+    A._use_cudnn = shipped_cudnn
+    for n, fn in shipped.items():
+        setattr(M, n, fn)
     return out
 
 
@@ -371,7 +406,8 @@ def main():
     if not args.skip_isolated:
         isolated(cfg, rng)
     in_situ(cfg, ["plain XLA", "int4 kernel at every size", "shipped",
-                  "library decode attention"])
+                  "library decode attention", "library RMSNorm",
+                  "Triton SwiGLU", "shipped, again"])
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

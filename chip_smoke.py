@@ -5,7 +5,9 @@ model width, checked against float32 references.
     python chip_smoke.py          # phases A-D on one card
     python chip_smoke.py --four   # tp=4, dp=4, cp=4 at llama2-13b widths on
                                   # four cards, each against one card
-                                  # (float32, 10 of the 40 layers)
+                                  # (float32, 10 of the 40 layers); then
+                                  # tp=4 with int4 weights against one card
+                                  # and the float32 reference
 
 Phases (every line names the card; any failed check fails the run):
 
@@ -18,14 +20,18 @@ B. Ops at Llama-2-7B widths (and Mistral-7B's GQA + sliding window): each
    a host reference write.
 C. Model logits: prefill of two prompts then 16 greedy decode steps through
    the engine, against the float32 reference forward on the same seeded
-   weights (models/reference.py): llama2-7b bf16, int8, int4; mistral-7b
-   bf16. Prints the relative L2 error of the logits and greedy agreement.
+   weights (models/reference.py): llama2-7b bf16, int8, int4, and int4
+   with an int8 KV cache in the slot and the paged layout (the reference
+   then rounds K and V as that cache stores them); mistral-7b bf16. Prints
+   the relative L2 error of the logits and greedy agreement.
 D. Serving: the HTTP server in-process on localhost (create_engine ->
    InferenceEngine -> ContinuousBatchingScheduler -> make_server), int4
    weights, bf16 KV, slot layout, batch 8, max_seq_len 2048: 8 concurrent
    completions of 32+ new tokens (one SSE stream, one chat request); then a
-   shorter paged int8-KV run. Prints wall time with compile time apart and
-   the decode step's ``compiled.memory_analysis()``.
+   shorter paged int8-KV run. The greedy completions' tokens are checked
+   against the float32 reference forward (teacher-forced). Prints wall time
+   with compile time apart and the decode step's
+   ``compiled.memory_analysis()``.
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -384,19 +390,21 @@ F32_TOL = (1e-3, "same path in float32 at highest matmul precision: "
 
 def run_logits(model: str, quant: str, cfg=None, decode_steps: int = 16,
                prompt_lens=(37, 101), max_seq: int = 256,
-               control: bool = False) -> bool:
+               control: bool = False, kv_dtype: str = "",
+               kv_layout: str = "slot") -> bool:
     """Prefill two prompts then ``decode_steps`` greedy steps through the
     engine; compare every step's logits with the reference forward over
     the same tokens. ``control``: the model in float32 with every matmul
-    at "highest" precision, held to F32_TOL."""
+    at "highest" precision, held to F32_TOL. ``kv_dtype``/``kv_layout``:
+    the engine's KV cache ("int8"; "paged")."""
     import jax
     with jax.default_matmul_precision("highest" if control else None):
         return _run_logits(model, quant, cfg, decode_steps, prompt_lens,
-                           max_seq, control)
+                           max_seq, control, kv_dtype, kv_layout)
 
 
 def _run_logits(model, quant, cfg, decode_steps, prompt_lens, max_seq,
-                control) -> bool:
+                control, kv_dtype, kv_layout) -> bool:
     import jax
     import jax.numpy as jnp
 
@@ -405,7 +413,8 @@ def _run_logits(model, quant, cfg, decode_steps, prompt_lens, max_seq,
     from llm_inference_engine.models.reference import reference_logits
 
     eng_cfg = EngineConfig(max_batch_size=len(prompt_lens),
-                           max_seq_len=max_seq, quant_mode=quant)
+                           max_seq_len=max_seq, quant_mode=quant,
+                           kv_cache_dtype_name=kv_dtype, kv_layout=kv_layout)
     t0 = time.perf_counter()
     engine = _make_engine(model, eng_cfg, cfg)
     cfg = engine.config
@@ -424,6 +433,7 @@ def _run_logits(model, quant, cfg, decode_steps, prompt_lens, max_seq,
         for b in range(B):
             seqs[b].append(int(tok[b]))
         lens = np.asarray(engine.cache.lengths)
+        engine.ensure_capacity(lens + 1)              # paged: next page
         kv_hi = engine._kv_watermark(lens, 1)
         lg, engine.cache = step(engine.params, engine.cache,
                                 jnp.asarray(tok)[:, None], jnp.asarray(lens),
@@ -436,7 +446,8 @@ def _run_logits(model, quant, cfg, decode_steps, prompt_lens, max_seq,
     want = []
     for b in range(B):
         ref = reference_logits(engine.config, engine.params,
-                               np.asarray(seqs[b], np.int32)[None])
+                               np.asarray(seqs[b], np.int32)[None],
+                               kv_int8=_kv_int8_format(engine))
         want.append(np.asarray(ref[0, len(prompts[b]) - 1:]))
     want = np.stack(want)
     t_ref = time.perf_counter() - t0
@@ -449,8 +460,10 @@ def _run_logits(model, quant, cfg, decode_steps, prompt_lens, max_seq,
     finite = (bool(np.isfinite(got).all()), bool(np.isfinite(want).all()))
     ok = all(finite) and rel <= tol[0] and agree >= AGREE_MIN[0]
     log(f"C {model} {quant if quant != 'none' else cfg.dtype_name}"
-        f"{' (control, matmul precision highest)' if control else ''}: "
-        f"layers={cfg.num_layers} (reference: all {cfg.num_layers}) "
+        f"{' (control, matmul precision highest)' if control else ''}"
+        f" kv={kv_dtype or cfg.dtype_name} {kv_layout}: "
+        f"layers={cfg.num_layers} (reference: all {cfg.num_layers}"
+        f"{', int8 KV rounding' if kv_dtype == 'int8' else ''}) "
         f"hidden={cfg.hidden_size} prompts={list(prompt_lens)} "
         f"decode_steps={decode_steps} rel_l2={rel:.3e} "
         f"(tol {tol[0]:.0e}: {tol[1]}) greedy_agreement="
@@ -490,6 +503,43 @@ def _post(addr, path, body, timeout=1200):
                 events.append(json.loads(block[len("data: "):]))
         return resp.status, events
     return resp.status, json.loads(resp.read())
+
+
+def _kv_int8_format(engine):
+    """The reference's int8 KV rounding for the engine's cache: None for a
+    bf16 / f32 cache; the paged pool embeds log2-coded scales."""
+    if engine.cache.k.dtype != np.int8:
+        return None
+    return ("log2_scale" if getattr(engine.cache, "embedded_scales", False)
+            else "f32_scale")
+
+
+def _served_tokens_match_reference(engine, reqs, results) -> bool:
+    """The greedy plain completions' tokens against the float32 reference
+    forward, teacher-forced on the served tokens: wrong or non-finite
+    logits still fill the token counts, so the tokens themselves are
+    checked."""
+    from llm_inference_engine.cli import _IdTokenizer
+    from llm_inference_engine.models.reference import reference_logits
+
+    tok = _IdTokenizer(engine.config.vocab_size)
+    agree = []
+    for (path, b), res in zip(reqs, results):
+        if (path != "/v1/completions" or b.get("stream") or b["temperature"]
+                or res is None or res[0] != 200):
+            continue
+        prompt = tok.encode(b["prompt"])
+        gen = [int(t) for t in res[1]["choices"][0]["text"].split()]
+        ref = reference_logits(engine.config, engine.params,
+                               np.asarray([prompt + gen], np.int32),
+                               kv_int8=_kv_int8_format(engine))
+        want = np.asarray(ref[0, len(prompt) - 1:-1]).argmax(-1)
+        agree.append(float(np.mean(want == np.asarray(gen))) if gen else 0.)
+    ok = bool(agree) and min(agree) >= AGREE_MIN[0]
+    log(f"D greedy completions vs the float32 reference (teacher-forced): "
+        f"agreement={[round(a, 3) for a in agree]} (min {AGREE_MIN[0]}: "
+        f"{AGREE_MIN[1]}) {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def run_serving(model: str, quant: str, kv_dtype: str, kv_layout: str,
@@ -583,6 +633,7 @@ def run_serving(model: str, quant: str, kv_dtype: str, kv_layout: str,
             f"(compile within it {c_run:.2f}s; warm-up request "
             f"{warm:.2f}s of which compile {c_warm:.2f}s) "
             f"{'ok' if ok else 'FAIL'}")
+        ok &= _served_tokens_match_reference(engine, reqs, results)
 
         # the decode step as compiled: its memory plan
         B = batch
@@ -631,46 +682,61 @@ def run_four(model: str = "llama2-13b", cfg=None, max_seq: int = 512,
     import jax
 
     with jax.default_matmul_precision("highest"):
-        return _run_four(model, cfg, max_seq, batch, decode_steps)
+        ok = _run_four(model, cfg, max_seq, batch, decode_steps)
+    return _run_four_int4(model, cfg, max_seq, batch, decode_steps) and ok
+
+
+def _four_setup(model, cfg, batch, decode_steps):
+    """The --four model (float32), its prompts and greedy sampling."""
+    from llm_inference_engine.config import SamplingParams, get_config
+    cfg = cfg or get_config(model).replace(num_layers=FOUR_LAYERS,
+                                           dtype_name="float32")
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(3, cfg.vocab_size, size=17 + 9 * i).tolist()
+               for i in range(batch)]
+    return cfg, prompts, SamplingParams(greedy=True,
+                                        max_new_tokens=decode_steps)
+
+
+def _four_engine(cfg, params, eng_cfg, mesh_kw, devs, prompts, sp):
+    """Prefill logits and greedy generations of one engine: on the first
+    device, or on a mesh over four."""
+    import jax
+
+    from llm_inference_engine.parallel import make_mesh
+    from llm_inference_engine.runtime.engine import InferenceEngine
+
+    mesh = make_mesh(devices=devs[:4], **mesh_kw) if mesh_kw else None
+    with jax.default_device(devs[0]):
+        engine = InferenceEngine(cfg, eng_cfg.replace(**mesh_kw), params,
+                                 mesh=mesh)
+        t0 = time.perf_counter()
+        first = np.asarray(engine.prefill(prompts))
+        engine.reset()
+        toks = engine.generate(prompts, sp, eos_token_id=None).token_ids
+        dt = time.perf_counter() - t0
+    del engine
+    gc.collect()
+    return first, toks, dt
 
 
 def _run_four(model, cfg, max_seq, batch, decode_steps) -> bool:
     import jax
 
-    from llm_inference_engine.config import (EngineConfig, SamplingParams,
-                                             get_config)
+    from llm_inference_engine.config import EngineConfig
     from llm_inference_engine.models.weights import init_dummy_params
-    from llm_inference_engine.parallel import make_mesh
-    from llm_inference_engine.runtime.engine import InferenceEngine
 
-    cfg = cfg or get_config(model).replace(num_layers=FOUR_LAYERS,
-                                           dtype_name="float32")
     devs = jax.devices()
     if len(devs) < 4:
         log(f"four: need 4 devices, have {len(devs)} FAIL")
         return False
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [rng.integers(3, cfg.vocab_size, size=17 + 9 * i).tolist()
-               for i in range(batch)]
-    sp = SamplingParams(greedy=True, max_new_tokens=decode_steps)
+    cfg, prompts, sp = _four_setup(model, cfg, batch, decode_steps)
+    eng_cfg = EngineConfig(max_batch_size=batch, max_seq_len=max_seq)
 
     def run(mesh_kw):
-        eng_cfg = EngineConfig(max_batch_size=batch, max_seq_len=max_seq,
-                               **mesh_kw)
-        mesh = (make_mesh(devices=devs[:4], **mesh_kw) if mesh_kw
-                else None)
         with jax.default_device(devs[0]):
             params = init_dummy_params(cfg, seed=SEED)
-            engine = InferenceEngine(cfg, eng_cfg, params, mesh=mesh)
-            del params
-            t0 = time.perf_counter()
-            first = np.asarray(engine.prefill(prompts))
-            engine.reset()
-            toks = engine.generate(prompts, sp, eos_token_id=None).token_ids
-            dt = time.perf_counter() - t0
-        del engine
-        gc.collect()
-        return first, toks, dt
+        return _four_engine(cfg, params, eng_cfg, mesh_kw, devs, prompts, sp)
 
     base_logits, base_toks, dt = run({})
     log(f"four one card: {cfg.name} {cfg.dtype_name} (matmul precision "
@@ -694,6 +760,61 @@ def _run_four(model, cfg, max_seq, batch, decode_steps) -> bool:
             f"greedy tokens agreement={agree:.3f} (min {AGREE_MIN[0]}) "
             f"sequences identical={same}/{batch} ({dt:.1f}s incl. compile) "
             f"{'ok' if good else 'FAIL'}")
+    return bool(ok)
+
+
+def _run_four_int4(model, cfg, max_seq, batch, decode_steps) -> bool:
+    """tp=4 with int4 weights at the production dtype (bf16 activations;
+    decode matmuls on each card's weight shard take the int4 kernel route)
+    against one card and against the float32 reference forward on the same
+    dequantized weights: prefill logits, and the greedy tokens
+    teacher-forced."""
+    import jax
+
+    from llm_inference_engine.config import EngineConfig
+    from llm_inference_engine.models.reference import reference_logits
+    from llm_inference_engine.models.weights import (
+        init_dummy_quantized_params)
+
+    devs = jax.devices()
+    cfg, prompts, sp = _four_setup(model, cfg, batch, decode_steps)
+    cfg = cfg.replace(dtype_name="bfloat16")
+    gs = min(128, cfg.hidden_size // 8)   # whole groups on each of 4 shards
+    eng_cfg = EngineConfig(max_batch_size=batch, max_seq_len=max_seq,
+                           quant_mode="int4", quant_group_size=gs)
+    with jax.default_device(devs[0]):
+        params = init_dummy_quantized_params(cfg, "int4", gs, seed=SEED)
+    runs = {name: _four_engine(cfg, params, eng_cfg, kw, devs, prompts, sp)
+            for name, kw in (("one card", {}), ("tp=4", {"tp": 4}))}
+    ok = True
+    want_first, agree = [], {name: [] for name in runs}
+    for b, p in enumerate(prompts):
+        seqs = {name: p + list(r[1][b]) for name, r in runs.items()}
+        for name, seq in seqs.items():
+            with jax.default_device(devs[0]):
+                ref = np.asarray(reference_logits(
+                    cfg, params, np.asarray([seq], np.int32))[0])
+            if name == "one card":
+                want_first.append(ref[len(p) - 1])
+            agree[name] += list(ref[len(p) - 1:-1].argmax(-1)
+                                == np.asarray(seq[len(p):]))
+    want_first = np.stack(want_first)
+    base = runs["one card"][0]
+    for name, (lg, toks, dt) in runs.items():
+        rel = float(np.linalg.norm(lg - want_first)
+                    / np.linalg.norm(want_first))
+        rel1 = float(np.linalg.norm(lg - base) / np.linalg.norm(base))
+        a = float(np.mean(agree[name]))
+        good = (np.isfinite(lg).all() and rel <= LOGIT_TOL[0]
+                and rel1 <= LOGIT_TOL[0] and a >= AGREE_MIN[0])
+        ok &= bool(good)
+        log(f"four {name} int4 (bf16 activations): {cfg.name} "
+            f"layers={cfg.num_layers} batch={batch} decode_steps="
+            f"{decode_steps}: prefill logits rel_l2 vs float32 reference="
+            f"{rel:.3e}, vs one card={rel1:.3e} (tol {LOGIT_TOL[0]:.0e}: "
+            f"bf16 rounding) greedy tokens vs reference (teacher-forced) "
+            f"agreement={a:.3f} (min {AGREE_MIN[0]}) ({dt:.1f}s incl. "
+            f"compile) {'ok' if good else 'FAIL'}")
     return bool(ok)
 
 
@@ -734,6 +855,8 @@ def main(argv=None) -> int:
                 cfg=get_config("llama2-7b").replace(dtype_name="float32"))]
                 + [run_logits("llama2-7b", q)
                    for q in ("none", "int8", "int4")]
+                + [run_logits("llama2-7b", "int4", kv_dtype="int8",
+                              kv_layout=lay) for lay in ("slot", "paged")]
                 + [run_logits("mistral-7b", "none")])),
             ("D", lambda: _serving_phase()),
         ]

@@ -52,8 +52,8 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, x, layer, layer_idx,
     Kernel sequence mirrors the reference contract
     (context_attention.cpp:144-304, ffn.cpp:77-140, self_decoder.cpp:69-119).
 
-    Cache dataflow is the hot design point: the write is a T-row
-    dynamic_update_slice window per sequence into the 5-D array (in place
+    Cache dataflow is the hot design point: the write scatters each
+    sequence's valid new rows (at most T) into the 5-D array (in place
     under donation) and attention reads the layer's rows up to ``kv_hi``
     straight out of the full array.
 

@@ -74,9 +74,26 @@ def _mm(x, w):
     return jnp.einsum("bti,io->bto", x, w, precision=_HP)
 
 
-def reference_logits(cfg: ModelConfig, params, token_ids) -> jax.Array:
+def _int8_round_trip(x, scale_format: str):
+    """x [B, T, K, D] through an int8 KV cache: per-(token, head) absmax
+    scale over D, values rounded to [-127, 127]. ``scale_format``:
+    "f32_scale" keeps the scale as is; "log2_scale" first rounds it to a
+    1/256-octave step, as the paged pool stores it."""
+    s = jnp.maximum(jnp.max(jnp.abs(x), axis=-1, keepdims=True), 1e-30) / 127
+    if scale_format == "log2_scale":
+        s = jnp.exp2(jnp.round(jnp.log2(s) * 256) / 256)
+    elif scale_format != "f32_scale":
+        raise ValueError(f"unknown int8 KV scale format {scale_format!r}")
+    return jnp.clip(jnp.round(x / s), -127, 127) * s
+
+
+def reference_logits(cfg: ModelConfig, params, token_ids,
+                     kv_int8: str | None = None) -> jax.Array:
     """token_ids [B, T] int32 -> logits [B, T, V] float32 at every position
-    (causal, positions 0..T-1, sliding window when the config has one)."""
+    (causal, positions 0..T-1, sliding window when the config has one).
+    ``kv_int8`` ("f32_scale" or "log2_scale"): keys and values take an int8
+    cache's rounding before attention, as an engine with an int8 KV cache
+    stores them."""
     token_ids = jnp.asarray(token_ids, jnp.int32)
     B, T = token_ids.shape
     H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -98,6 +115,8 @@ def reference_logits(cfg: ModelConfig, params, token_ids) -> jax.Array:
         q = _rotate(z[:, :, :, :G].reshape(B, T, H, D), cos, sin)
         k = _rotate(z[:, :, :, G], cos, sin)
         v = z[:, :, :, G + 1]
+        if kv_int8:
+            k, v = _int8_round_trip(k, kv_int8), _int8_round_trip(v, kv_int8)
         s = jnp.einsum("bqkgd,bskd->bkgqs", q.reshape(B, T, K, G, D), k,
                        precision=_HP) / math.sqrt(D)
         s = jnp.where(mask, s, -jnp.inf)

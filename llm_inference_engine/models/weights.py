@@ -115,8 +115,8 @@ def init_dummy_quantized_params(config: ModelConfig, mode: str = "int8",
                                 group_size: int = 128, seed: int = 0,
                                 scale: float = 0.02) -> Params:
     """Random dummy weights born quantized (no full-precision original is
-    ever materialized — needed to stage a 7B model on a single 16 GB chip,
-    which is exactly the wall the reference hit in FP16, README.md:9)."""
+    ever materialized, so a 7B model stages on a card that could not hold
+    its FP16 original — the wall the reference hit, README.md:9)."""
     L, Hd = config.num_layers, config.hidden_size
     key = jax.random.PRNGKey(seed)
 

@@ -57,6 +57,17 @@ def test_phase_logits_reduced_widths(quant):
                                  max_seq=64)
 
 
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_phase_logits_int8_kv_reduced_widths(layout):
+    """float32 with an int8 KV cache, held to the control's tolerance: the
+    reference rounds K and V as the slot cache (float32 scales) and the
+    paged pool (log2-coded scales) store them."""
+    assert chip_smoke.run_logits("debug", "none", cfg=get_config("debug"),
+                                 decode_steps=4, prompt_lens=(5, 11),
+                                 max_seq=64, control=True, kv_dtype="int8",
+                                 kv_layout=layout)
+
+
 def test_phase_serving_reduced_widths():
     clock = chip_smoke._CompileClock()
     assert chip_smoke.run_serving("debug", "none", "", "slot", batch=2,
@@ -65,8 +76,9 @@ def test_phase_serving_reduced_widths():
 
 
 def test_phase_four_reduced_widths():
-    """--four's tp=4 / dp=4 / cp=4 engines against one device, on four of
-    the virtual CPU devices."""
+    """--four's tp=4 / dp=4 / cp=4 engines against one device, then tp=4
+    with int4 weights against one device and the float32 reference, on
+    four of the virtual CPU devices."""
     cfg = TINY.replace(name="tiny-13b", num_heads=8, num_kv_heads=8,
                        head_dim=32, dtype_name="float32")
     assert chip_smoke.run_four(cfg=cfg, max_seq=512, batch=8,

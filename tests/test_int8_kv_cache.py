@@ -149,3 +149,21 @@ def test_engine_embedded_cache_forward(rng):
     assert lf.argmax() == lq.argmax()
     rel = np.abs(lf - lq).max() / (np.abs(lf).max() + 1e-9)
     assert rel < 0.05, rel
+
+
+@pytest.mark.parametrize("fmt", ["f32_scale", "log2_scale"])
+def test_reference_int8_rounding_matches_cache_formats(rng, fmt):
+    """The reference forward's int8 KV rounding (models/reference.py) gives
+    the values the slot cache (float32 scales) and the paged pool
+    (log2-coded embedded scales) store."""
+    from llm_inference_engine.models.reference import _int8_round_trip
+    K = 4
+    x = jnp.asarray(rng.normal(size=(2, 5, K, 64)) * 3.0, jnp.float32)
+    got = np.asarray(_int8_round_trip(x, fmt))
+    if fmt == "f32_scale":
+        q, s = kvc._quantize_kv(x)
+    else:
+        e = kvc.quantize_kv_embedded(x)
+        q, s = e[:, :, :K], kvc.decode_embedded_scales(e[:, :, K], K)
+    want = np.asarray(q, np.float32) * np.asarray(s)[..., None]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
